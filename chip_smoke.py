@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernel
+    python3 chip_smoke.py --phases build,profile
 
 Phases, each printing its numbers on a line of its own and raising on the
 first failure:
@@ -9,14 +10,23 @@ first failure:
 1. build:  nvcc compiles every ``fedmlp_tpu_torch/csrc/*.cu`` (one process
    per source, all at once) into ``fedmlp_tpu_torch/_build/``.
 2. kernel: each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it, with its median time (CUDA events), the
-   plain version's time and its bound.
+   shapes the main path gives it (the warp at B=32, 224 px; the two
+   depthwise kernels at the 16 depthwise layers of EfficientNet-B0), with its
+   median time (CUDA events), the plain version's time, its bound and, where
+   one PyTorch call computes the same function, that call's time.
 3. slice:  the port's FedMLP ``Trainer`` at the flagship geometry
    (EfficientNet-B0, 224 px, batch 32, 20 clients, bf16): two stage-1 rounds
-   (the second harvests prototypes), one stage-2 round, then evaluation. The
-   kernels' launch counts are reset just before and read just after, and
-   must match the count the rounds imply.
-4. profile (only when asked for): where a stage-1 round's device time goes.
+   (the second harvests prototypes), one stage-2 round, then evaluation. On
+   every path the kernels' launch counts are reset just before and read just
+   after, and must match the count the rounds imply.
+4. slice_dw: the same geometry with ``dw_backend='pallas'``, one stage-1
+   round (which harvests) and one stage-2 round: the depthwise backward goes
+   through ``dw_conv_s1`` and ``dw_wgrad_s1``.
+5. cli:    ``fedmlp_tpu_torch.cli.main`` in-process: FedAVG, 4 clients,
+   EfficientNet-B0 with ``--dw_backend pallas``, 2 rounds with a checkpoint
+   each, then ``--resume`` from round 0's checkpoint; round 1 must repeat.
+6. profile (only when asked for): where a stage-1 round's device time goes,
+   for both depthwise backends.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -50,14 +60,19 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 5, flush=None) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` runs, each timed with
-    its own pair of CUDA events."""
+    its own pair of CUDA events. ``flush``, a buffer larger than the 50 MB
+    L2, is overwritten before every timed run, so that ``fn`` finds its
+    inputs in device memory as a caller in the middle of a backward pass
+    does."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -81,7 +96,7 @@ def phase_build() -> None:
     print(f"phase build: {len(logs)} sources in {secs:.2f} s")
 
 
-def phase_kernel(dev) -> dict:
+def phase_kernel_warp(dev) -> dict:
     from fedmlp_tpu_torch.ops import warp
 
     g = torch.Generator(device=dev)
@@ -142,53 +157,251 @@ def phase_kernel(dev) -> dict:
     }
 
 
-def flagship_config(n_clients: int, n_train: int):
-    """bench.py::_bench_fedmlp's flagship FedMLP run, two stage-1 rounds."""
+def dw_layer_calls(dev) -> list:
+    """(name, C, H, W, k, stride, pads) of every depthwise layer, as one
+    B=32, 224 px forward of ``efficientnet_b0(dw_backend='pallas')`` calls
+    it: the 16 shapes the flagship's backward hands the two kernels."""
+    from fedmlp_tpu_torch.models import build_model, init_model
+    from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+
+    model = init_model(build_model("efficient_b0", N_CLASSES, dw_backend="pallas"),
+                       1037).to(dev).eval()
+    calls = []
+    hooks = [
+        m.register_forward_pre_hook(
+            lambda mod, args, name=name: calls.append(
+                (name, mod.features, args[0].shape[2], args[0].shape[3],
+                 mod.kernel, mod.stride, args[1])))
+        for name, m in model.named_modules() if isinstance(m, DepthwisePallas)]
+    with torch.no_grad():
+        model(torch.zeros((B, 3, SIZE, SIZE), device=dev))
+    for h in hooks:
+        h.remove()
+    if len(calls) != 16:
+        raise SystemExit(f"expected 16 depthwise layers, saw {len(calls)}")
+    return calls
+
+
+def _dw_case(dev, g, call, dtype):
+    """Random operands of one layer's backward: x, the cotangent (strided,
+    and zero-dilated to input resolution), the filter, and the padded input
+    that the library's convolution backward takes."""
+    from fedmlp_tpu_torch.ops import dw_pallas as dwp
+
+    _, C, H, W, k, stride, pads = call
+    (pt, pb), (pl, pr) = pads
+    Ho, Wo = (H + pt + pb - k) // stride + 1, (W + pl + pr - k) // stride + 1
+    x = torch.randn((B, C, H, W), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, C, Ho, Wo), generator=g, device=dev).to(dtype)
+    w = (torch.randn((C, 1, k, k), generator=g, device=dev) * 0.2).to(dtype)
+    return {
+        "x": x, "dy": dy, "w": w, "k": k, "stride": stride, "pads": pads,
+        "dy_e": dwp.dilate_to_input(dy, stride, H, W).contiguous(),
+        "wf": w.flip(2, 3).contiguous(),
+        "dx_pads": ((k - 1 - pt, pt), (k - 1 - pl, pl)),
+        "xp": torch.nn.functional.pad(x, (pl, pr, pt, pb)),
+    }
+
+
+def _library_backward(case, mask):
+    """PyTorch's own convolution backward for the layer (input gradient or
+    weight gradient alone): the yardstick, called by nothing in the port."""
+    C = case["x"].shape[1]
+    s = case["stride"]
+    return torch.ops.aten.convolution_backward(
+        case["dy"], case["xp"], case["w"], None, [s, s], [0, 0], [1, 1], False,
+        [0, 0], C, mask)
+
+
+def phase_kernel_dw(dev) -> list:
+    """``dw_conv_s1`` and ``dw_wgrad_s1`` against their plain versions at the
+    16 depthwise layers of EfficientNet-B0 (B=32, 224 px; stride-2 layers
+    through the dilated cotangent): every layer in bf16, the two largest
+    also in f32. Times are sums over the 16 bf16 layers, every run starting
+    from a flushed L2."""
+    from fedmlp_tpu_torch.ops import dw_pallas as dwp
+
+    calls = dw_layer_calls(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1037)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    largest = sorted(range(16), key=lambda i: -calls[i][1] * calls[i][2] * calls[i][3])[:2]
+    stats = {n: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bytes_ms": 0.0, "flops_ms": 0.0}
+             for n in ("dw_conv_s1", "dw_wgrad_s1")}
+    for i, call in enumerate(calls):
+        name, C, H, W, k, stride, pads = call
+        for dtype in [torch.bfloat16] + ([torch.float32] if i in largest else []):
+            case = _dw_case(dev, g, call, dtype)
+            x, dy_e, wf = case["x"], case["dy_e"], case["wf"]
+
+            def conv():
+                return dwp.dw_conv_s1(dy_e, wf, case["dx_pads"])
+
+            def wgrad():
+                return dwp.dw_wgrad_s1(x, dy_e, k, pads)
+
+            dx, dx_ref = conv(), dwp.dw_conv_s1_ref(dy_e, wf, case["dx_pads"])
+            dw, dw2, dw_ref = wgrad(), wgrad(), dwp.dw_wgrad_s1_ref(x, dy_e, k, pads)
+            torch.cuda.synchronize()
+            # dx tolerance. f32: the kernel accumulates the k*k taps with
+            # FMAs, the plain version rounds each product and sum, so they
+            # differ by a few f32 ulps of sums of magnitude ~1: 1e-5. bf16:
+            # both round an f32 sum that differs by those ulps to bf16, so a
+            # value on a rounding boundary may land one bf16 ulp apart:
+            # 2^-7 relative.
+            dx_err = (dx.float() - dx_ref.float()).abs()
+            if dtype == torch.float32:
+                dx_bad = float(dx_err.max()) > 1e-5
+            else:
+                dx_bad = bool((dx_err > dx_ref.float().abs() * 2.0 ** -7 + 1e-6).any())
+            # dw tolerance: f32 sums of up to 401,408 products (B*H*W) in
+            # another order than the plain version's: 1e-4 of the largest
+            # |dw|, in both types (bf16 inputs are read exactly, the
+            # accumulation is f32 either way).
+            dw_err = float((dw - dw_ref).abs().max())
+            dw_tol = 1e-4 * float(dw_ref.abs().max())
+            tname = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"phase kernel: {name} C={C} {H}x{W} k={k} s={stride} {tname} "
+                  f"dx max_abs_err={float(dx_err.max()):.3e} "
+                  f"dw max_abs_err={dw_err:.3e} (tol {dw_tol:.3e}) "
+                  f"repeat_equal={torch.equal(dw, dw2)}")
+            if dx_bad or not math.isfinite(float(dx_err.max())):
+                raise SystemExit(f"dw_conv_s1 disagrees with its plain version at {call}")
+            if not dw_err <= dw_tol:
+                raise SystemExit(f"dw_wgrad_s1 disagrees with its plain version at {call}")
+            if not torch.equal(dw, dw2):
+                raise SystemExit(f"dw_wgrad_s1 gave different bits on a repeat at {call}")
+            if dw.dtype != torch.float32 or dx.dtype != dtype:
+                raise SystemExit(f"wrong result types {dx.dtype}, {dw.dtype}")
+            stats["dw_conv_s1"]["err"] = max(stats["dw_conv_s1"]["err"],
+                                             float(dx_err.max()))
+            stats["dw_wgrad_s1"]["err"] = max(stats["dw_wgrad_s1"]["err"], dw_err)
+            if dtype != torch.bfloat16:
+                continue
+            plane_bytes = x.numel() * x.element_size()
+            for kname, fn, ref, mask, small_bytes in (
+                    ("dw_conv_s1", conv,
+                     lambda: dwp.dw_conv_s1_ref(dy_e, wf, case["dx_pads"]),
+                     [True, False, False], wf.numel() * wf.element_size()),
+                    ("dw_wgrad_s1", wgrad,
+                     lambda: dwp.dw_wgrad_s1_ref(x, dy_e, k, pads),
+                     [False, True, False], dw.numel() * dw.element_size())):
+                st = stats[kname]
+                st["ms"] += cuda_ms(fn, 10, 2, flush)
+                st["plain_ms"] += cuda_ms(ref, 3, 1, flush)
+                st["library_ms"] += cuda_ms(
+                    lambda: _library_backward(case, mask), 10, 2, flush)
+                # two plane-sized tensors read or written once, plus the
+                # filter or its gradient; 2*k*k flops an element
+                st["bytes_ms"] += (2 * plane_bytes + small_bytes) / HBM_BYTES_PER_S * 1e3
+                st["flops_ms"] += 2 * k * k * x.numel() / F32_FLOP_PER_S * 1e3
+    out = []
+    for kname, line in (("dw_conv_s1", 112), ("dw_wgrad_s1", 144)):
+        st = stats[kname]
+        bound_ms = max(st["bytes_ms"], st["flops_ms"])
+        print(f"phase kernel: {kname} 16 layers bf16 B={B}: ms={st['ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+              f"bound_ms={bound_ms:.4f} share={bound_ms / st['ms']:.3f} "
+              f"(library: aten.convolution_backward, one output)")
+        out.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "fedmlp_tpu_torch/csrc/dw_conv.cu",
+            "replaces": f"fedmlp_tpu/ops/dw_pallas.py:{line}",
+            "launches": None,
+            "max_abs_err": st["err"],
+            "ms": st["ms"],
+            "plain_ms": st["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if st["bytes_ms"] >= st["flops_ms"] else "operations",
+            "library_ms": st["library_ms"],
+        })
+    return out
+
+
+def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
+                    dw_backend: str = ""):
+    """bench.py::_bench_fedmlp's flagship FedMLP run."""
     from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
 
     return Config(
         algorithm="fedmlp", model="efficient_b0", batch_size=B, base_lr=3e-5,
         n_clients=n_clients, local_ep=1, rounds_warmup=4, eval_every=10**6,
-        seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=2),
+        seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1),
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
                         synthetic_train_size=n_train, synthetic_test_size=64),
-        compute_dtype="bfloat16", output_dir="",
+        compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="",
     )
 
 
-def phase_slice(dev, card: str) -> dict:
-    from fedmlp_tpu_torch.ops import warp
+def reset_launch_counts() -> None:
+    from fedmlp_tpu_torch.ops import dw_pallas, warp
+
+    warp.reset_launch_counts()
+    dw_pallas.reset_launch_counts()
+
+
+def read_launch_counts() -> dict:
+    from fedmlp_tpu_torch.ops import dw_pallas, warp
+
+    return {**warp.LAUNCH_COUNTS, **dw_pallas.LAUNCH_COUNTS}
+
+
+def check_launches(path: str, launches: dict, expected: dict) -> None:
+    print(f"phase {path}: launches {launches}, expected {expected}")
+    if launches != expected:
+        raise SystemExit(f"{path}: kernels launched {launches}, expected {expected}")
+
+
+def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
+                 n_rounds: int) -> tuple[dict, list]:
+    """Drive ``n_rounds`` rounds of the FedMLP ``Trainer`` at ``cfg``, with
+    the launch counts set to 0 just before and read just after; check the
+    outputs and that the counts equal what the rounds imply. Returns
+    (launches, seconds of each round)."""
     from fedmlp_tpu_torch.train import Trainer
 
-    cfg = flagship_config(K, N)
     t0 = time.perf_counter()
     tr = Trainer(cfg, device=dev)
     torch.cuda.synchronize()
-    print(f"phase slice: setup {time.perf_counter() - t0:.2f} s")
+    print(f"phase {path}: setup {time.perf_counter() - t0:.2f} s")
+    n_clients = tr.n_clients
     imgs_per_round = int(tr.fd.valid.sum().item()) * cfg.local_ep
 
-    # expected launches: two weak views per real stage-1 step, one per
+    # expected launches. Warp: two weak views per real stage-1 step, one per
     # stage-2 step, one per harvest chunk and client (one sweep in the last
-    # stage-1 round, two in a stage-2 round)
+    # stage-1 round, two in a stage-2 round). Depthwise kernels
+    # (dw_backend='pallas'): one launch of each per depthwise layer (16) and
+    # train-mode forward that gets a backward: two per real stage-1 step,
+    # one per stage-2 step; padding steps and eval-mode forwards add none.
     valid = tr.fd.valid.cpu().numpy()
     steps = sum(int(math.ceil(n / B)) for n in valid.sum(1)) * cfg.local_ep
-    chunks = K * int(math.ceil(valid.shape[1] / (4 * B)))
-    expected = 2 * (2 * steps) + chunks + (steps + 2 * chunks)
+    chunks = n_clients * int(math.ceil(valid.shape[1] / (4 * B)))
+    n_stage2 = n_rounds - stage1_rounds
+    train_forwards = 2 * steps * stage1_rounds + steps * n_stage2
+    dw = 16 * train_forwards if cfg.dw_backend == "pallas" else 0
+    expected = {
+        "fused_warp_normalize": train_forwards + chunks + 2 * chunks * n_stage2,
+        "dw_conv_s1": dw, "dw_wgrad_s1": dw,
+    }
 
-    warp.reset_launch_counts()
-    losses = []
-    for rnd in range(3):
+    reset_launch_counts()
+    losses, seconds = [], []
+    for rnd in range(n_rounds):
         t1 = time.perf_counter()
         rec = tr.run_round(rnd)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
+        seconds.append(secs)
         losses.extend(rec.client_losses)
-        print(f"phase slice: round {rnd} (stage {1 if rnd < 2 else 2}) "
+        print(f"phase {path}: round {rnd} (stage {1 if rnd < stage1_rounds else 2}) "
               f"{secs:.3f} s {imgs_per_round / secs:.1f} img/s "
-              f"mean loss {sum(rec.client_losses) / K:.5f} [{card}]")
-    launches = dict(warp.LAUNCH_COUNTS)
+              f"mean loss {sum(rec.client_losses) / n_clients:.5f} "
+              f"dw_backend={cfg.dw_backend or 'conv'} [{card}]")
+    launches = read_launch_counts()
     metrics = tr.evaluate()
-    print(f"phase slice: global_test {json.dumps(metrics)}")
+    print(f"phase {path}: global_test {json.dumps(metrics)}")
 
     if not all(math.isfinite(x) for x in losses):
         raise SystemExit(f"non-finite client losses: {losses}")
@@ -199,17 +412,108 @@ def phase_slice(dev, card: str) -> dict:
         v = tr.server_state[key]
         if not torch.isfinite(torch.as_tensor(v)).all():
             raise SystemExit(f"non-finite server state {key}")
-    n_tagged = int((tr.server_state["tags"] > 0).sum())
-    print(f"phase slice: tagged cells {n_tagged}, launches {launches}, "
-          f"expected fused_warp_normalize {expected}")
-    if launches["fused_warp_normalize"] != expected:
-        raise SystemExit(f"fused_warp_normalize launched "
-                         f"{launches['fused_warp_normalize']} times, expected {expected}")
+    print(f"phase {path}: tagged cells {int((tr.server_state['tags'] > 0).sum())}")
+    check_launches(path, launches, expected)
+    return launches, seconds
+
+
+def phase_slice(dev, card: str) -> tuple[dict, list]:
+    """Two stage-1 rounds (the second harvests) and one stage-2 round at the
+    flagship geometry, default depthwise backend."""
+    return run_flagship("slice", dev, card, flagship_config(K, N), 2, 3)
+
+
+def phase_slice_dw(dev, card: str, conv_seconds) -> dict:
+    """The same geometry with ``dw_backend='pallas'``: one stage-1 round
+    (which harvests) and one stage-2 round, the depthwise backward through
+    ``dw_conv_s1`` and ``dw_wgrad_s1``."""
+    launches, secs = run_flagship(
+        "slice_dw", dev, card, flagship_config(K, N, 1, "pallas"), 1, 2)
+    if conv_seconds:
+        print(f"phase slice_dw: stage 1 + harvest {secs[0]:.3f} s, stage 2 "
+              f"{secs[1]:.3f} s with dw_backend='pallas'; default backend "
+              f"{conv_seconds[1]:.3f} s and {conv_seconds[2]:.3f} s (phase slice, "
+              f"rounds 1 and 2) [{card}]")
+    return launches
+
+
+def _read_losses(metrics_path: str) -> dict:
+    """{round: [client losses]} from a ``metrics.jsonl``, later records of a
+    (round, client) replacing earlier ones."""
+    by_round: dict = {}
+    with open(metrics_path) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if "/warm-up-loss/client" in rec["tag"]:
+                client = int(rec["tag"].rsplit("client", 1)[1])
+                by_round.setdefault(rec["step"], {})[client] = rec["value"]
+    return {r: [v[c] for c in sorted(v)] for r, v in by_round.items()}
+
+
+def phase_cli(dev, card: str) -> dict:
+    """``fedmlp_tpu_torch.cli.main`` in-process on the card: FedAVG at the
+    geometry of bench.py::_bench_fedavg (4 clients, EfficientNet-B0, 224 px,
+    batch 32, 5 classes, p_pos=1, bf16, synthetic, 128 images a client) with
+    ``--dw_backend pallas``, 2 rounds, a checkpoint after each; then a
+    second call that resumes from round 0's checkpoint and runs round 1
+    again."""
+    import os
+    import tempfile
+
+    from fedmlp_tpu_torch import cli
+
+    n_clients, rounds = 4, 2
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--exp", "FedAVG", "--dataset", "synthetic", "--model", "efficient_b0",
+                "--n_clients", str(n_clients), "--n_classes", "5",
+                "--image_size", str(SIZE), "--batch_size", str(B), "--p_pos", "1",
+                "--base_lr", "3e-5", "--compute_dtype", "bfloat16",
+                "--synthetic_train_size", str(n_clients * 128),
+                "--synthetic_test_size", "64", "--dw_backend", "pallas",
+                "--rounds", str(rounds), "--checkpoint_every", "1",
+                "--eval_every", "1000000", "--seed", "1037",
+                "--output_dir", out, "--exp_tag", "smoke"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_launch_counts()
+        metrics_path = os.path.join(out, "smoke", "logs", "metrics.jsonl")
+        ckpts = [os.path.join(out, "smoke", "models", f"ckpt_{r}.pkl")
+                 for r in range(rounds)]
+        for f in [metrics_path] + ckpts:
+            if not os.path.exists(f):
+                raise SystemExit(f"cli: {f} was not written")
+        first = _read_losses(metrics_path)
+        print(f"phase cli: {rounds} FedAVG rounds in {secs:.2f} s (set-up and final "
+              f"evaluation included) losses {first} [{card}]")
+        steps = n_clients * (128 // B) * rounds
+        check_launches("cli", launches, {
+            "fused_warp_normalize": steps, "dw_conv_s1": 16 * steps,
+            "dw_wgrad_s1": 16 * steps})
+
+        cli.main(argv + ["--resume", ckpts[0]])
+        torch.cuda.synchronize()
+        again = _read_losses(metrics_path)
+    flat = [v for r in first.values() for v in r] + again[1]
+    if sorted(first) != [0, 1] or not all(math.isfinite(v) for v in flat):
+        raise SystemExit(f"cli: missing or non-finite losses {first} {again}")
+    # tolerance: the resumed round starts from the saved weights, host RNG
+    # and generator state, so plans and augmentation draws are equal; cuDNN's
+    # backward of the 1x1 convolutions may sum in another order from run to
+    # run, which bf16 activations can carry into the 4th digit of a loss
+    diff = max(abs(a - b) / abs(a) for a, b in zip(first[1], again[1]))
+    print(f"phase cli: resumed round 1 losses {again[1]}, max relative "
+          f"difference to the first run {diff:.3e} (tol 1e-3)")
+    if not diff <= 1e-3:
+        raise SystemExit(f"cli: resumed round differs: {first[1]} vs {again[1]}")
     return launches
 
 
 _KERNEL_KINDS = (
     ("warp", ("fused_warp",)),
+    ("dw_kernels", ("dw_conv_s1", "dw_wgrad")),
     ("conv", ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad", "cutlass")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm")),
     ("adam", ("multi_tensor", "adam")),
@@ -218,12 +522,50 @@ _KERNEL_KINDS = (
 )
 
 
+def layer_host_us(dev, backend: str, iters: int = 300) -> float:
+    """Host microseconds of one depthwise layer's forward and backward under
+    bf16 autocast, at a size whose kernels take next to no device time
+    (B=2, C=32, 14x14, k=3): the per-layer cost the host pays to issue the
+    work, which is what a host-bound step feels."""
+    from fedmlp_tpu_torch.models.layers import same_pad, same_pads
+    from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+
+    C, H, k = 32, 14, 3
+    if backend == "pallas":
+        layer = DepthwisePallas(C, k, 1).to(dev)
+        pads = (same_pads(H, k, 1), same_pads(H, k, 1))
+        torch.nn.init.normal_(layer.weight)
+        run = lambda x: layer(x, pads)  # noqa: E731
+    else:
+        layer = torch.nn.Conv2d(C, C, k, 1, groups=C, bias=False).to(dev)
+        run = lambda x: layer(same_pad(x, k, 1))  # noqa: E731
+    x = torch.randn((2, C, H, H), device=dev, requires_grad=True)
+
+    def step():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            y = run(x)
+        y.sum().backward()
+
+    for _ in range(20):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e6
+
+
 def phase_profile(dev, card: str) -> None:
-    """Where a stage-1 round's time goes: torch.profiler over one steady
-    stage-1 round of a 2-client trainer with the flagship's per-client
-    geometry (B=32, 128 images a client, 224 px, bf16); the flagship round
-    repeats this client loop 20 times. Prints the round's wall time, the
-    device's busy share, and device time by kernel kind and by kernel."""
+    """Where a stage-1 round's time goes, with the default depthwise backend
+    and with ``dw_backend='pallas'``: one steady stage-1 round of a 2-client
+    trainer with the flagship's per-client geometry (B=32, 128 images a
+    client, 224 px, bf16); the flagship round repeats this client loop 20
+    times. First the unprofiled round's wall time for each backend, four
+    times in the order conv, pallas, pallas, conv (the host's clock is
+    noisy: the spread is part of the reading); then ``torch.profiler`` over
+    one round of each: the device's busy share and device time by kernel
+    kind and by kernel."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
@@ -231,53 +573,77 @@ def phase_profile(dev, card: str) -> None:
 
     from fedmlp_tpu_torch.train import Trainer
 
-    tr = Trainer(flagship_config(2, 2 * 4 * B), device=dev)
-    tr.run_round(0)  # warm-up: cuDNN algorithm choice, allocator
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tr.run_round(0)
-    torch.cuda.synchronize()
-    plain_s = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tr.run_round(0)
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    by_name = defaultdict(float)
-    n_kernels = 0
-    for e in prof.events():
-        # a user annotation (e.g. Optimizer.step) spans kernels that are
-        # counted on their own already
-        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation",
-                                                            False):
-            by_name[e.name] += e.time_range.elapsed_us()
-            n_kernels += 1
-    busy_us = sum(by_name.values())
-    by_kind = defaultdict(float)
-    for name, us in by_name.items():
-        low = name.lower()
-        kind = next((k for k, keys in _KERNEL_KINDS if any(x in low for x in keys)),
-                    "other")
-        by_kind[kind] += us
     steps = 2 * 4
-    print(f"phase profile: stage-1 round, 2 clients x 4 steps: {plain_s:.3f} s "
-          f"unprofiled ({plain_s / steps * 1e3:.1f} ms a step), {wall_s:.3f} s "
-          f"profiled, device busy {busy_us / 1e6:.3f} s = "
-          f"{busy_us / 1e6 / wall_s:.3f} of the profiled wall, "
-          f"{n_kernels / steps:.0f} device ops a step [{card}]")
-    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"phase profile: kind {kind:12s} {us / 1e3:9.2f} ms "
-              f"{us / busy_us:.3f} of device time")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"phase profile: kernel {us / 1e3:9.2f} ms {us / busy_us:.3f} {name[:110]}")
+    trainers = {}
+    for backend in ("conv", "pallas"):
+        tr = Trainer(flagship_config(2, 2 * 4 * B, dw_backend=backend), device=dev)
+        tr.run_round(0)  # warm-up: cuDNN algorithm choice, allocator
+        trainers[backend] = tr
+    torch.cuda.synchronize()
+    plain_s = defaultdict(list)
+    for backend in ("conv", "pallas", "pallas", "conv") * 4:
+        t0 = time.perf_counter()
+        trainers[backend].run_round(0)
+        torch.cuda.synchronize()
+        plain_s[backend].append(time.perf_counter() - t0)
+    for backend, tr in trainers.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run_round(0)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        by_name = defaultdict(float)
+        n_kernels = 0
+        for e in prof.events():
+            # a user annotation (e.g. Optimizer.step) spans kernels that are
+            # counted on their own already
+            if e.device_type == DeviceType.CUDA and not getattr(
+                    e, "is_user_annotation", False):
+                by_name[e.name] += e.time_range.elapsed_us()
+                n_kernels += 1
+        busy_us = sum(by_name.values())
+        by_kind = defaultdict(float)
+        for name, us in by_name.items():
+            low = name.lower()
+            kind = next((k for k, keys in _KERNEL_KINDS if any(x in low for x in keys)),
+                        "other")
+            by_kind[kind] += us
+        tag = f"phase profile [{backend}]:"
+        unprofiled = plain_s[backend]
+        print(f"{tag} stage-1 round, 2 clients x 4 steps: unprofiled "
+              f"{' '.join(f'{t:.3f}' for t in unprofiled)} s (median "
+              f"{statistics.median(unprofiled):.3f} s, "
+              f"{statistics.median(unprofiled) / steps * 1e3:.1f} ms a step), "
+              f"{wall_s:.3f} s profiled, device busy {busy_us / 1e6:.3f} s = "
+              f"{busy_us / 1e6 / wall_s:.3f} of the profiled wall, "
+              f"{n_kernels / steps:.0f} device ops a step [{card}]")
+        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"{tag} kind {kind:12s} {us / 1e3:9.2f} ms "
+                  f"{us / busy_us:.3f} of device time")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:14]:
+            print(f"{tag} kernel {us / 1e3:9.2f} ms {us / busy_us:.3f} {name[:110]}")
+    host = defaultdict(list)
+    for backend in ("conv", "pallas", "pallas", "conv"):
+        host[backend].append(layer_host_us(dev, backend))
+    print("phase profile: host us of one small depthwise layer's forward + backward "
+          + ", ".join(f"{b}: {' '.join(f'{u:.1f}' for u in us)}" for b, us in host.items())
+          + f" [{card}]")
+
+
+# kernels each path must launch at least once
+_PATH_KERNELS = {
+    "slice": ("fused_warp_normalize",),
+    "slice_dw": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1"),
+    "cli": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1"),
+}
 
 
 def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernel,slice",
-                    help="comma list of build,kernel,slice,profile")
+    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli",
+                    help="comma list of build,kernel,slice,slice_dw,cli,profile")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -291,13 +657,23 @@ def main(argv=None) -> int:
         phase_build()
     kernels = []
     if "kernel" in phases:
-        kernels.append(phase_kernel(dev))
+        kernels.append(phase_kernel_warp(dev))
+        kernels.extend(phase_kernel_dw(dev))
+    by_path, conv_seconds = {}, None
     if "slice" in phases:
-        launches = phase_slice(dev, card)
+        by_path["slice"], conv_seconds = phase_slice(dev, card)
+    if "slice_dw" in phases:
+        by_path["slice_dw"] = phase_slice_dw(dev, card, conv_seconds)
+    if "cli" in phases:
+        by_path["cli"] = phase_cli(dev, card)
+    for path, launches in by_path.items():
+        for name in _PATH_KERNELS[path]:
+            if not launches[name]:
+                raise SystemExit(f"{name} never launched on the {path} path")
+    if by_path:
         for k in kernels:
-            k["launches"] = launches[k["name"]]
-            if not k["launches"]:
-                raise SystemExit(f"{k['name']} never launched on the main path")
+            k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+            k["launches"] = sum(k["launches_by_path"].values())
     if "profile" in phases:
         phase_profile(dev, card)
     print(card)

@@ -193,8 +193,6 @@ def _get_harvest(trainer):
 
 def _get_stage2_fn(trainer):
     if not hasattr(trainer, "_fedmlp_stage2_fn"):
-        if trainer.cfg.fedmlp.mixup:
-            raise NotImplementedError("fedmlp.mixup is not ported yet")
         trainer._fedmlp_stage2_fn = rt.make_local_round(
             trainer.model, stage2_loss_fn,
             lr=trainer.cfg.base_lr,

@@ -4,8 +4,9 @@ The same frozen dataclasses with the same fields and defaults, so one set of
 settings drives either package. Fields that select engines of the JAX
 package which the port does not have yet (mesh, lockstep, stacked clients,
 view concatenation, host streaming, remat, weight streaming, pre-augment)
-are kept for that parity and not read by the port; ``ROADMAP.md`` lists
-them.
+are kept for that parity: ``train.py::check_ported`` accepts their 'auto',
+empty and off values and raises on any other, naming the field, so no knob
+is accepted and ignored; ``ROADMAP.md`` lists them.
 """
 
 from __future__ import annotations
@@ -49,8 +50,8 @@ class DataConfig:
     # three-shear warp kernel, ops/warp.py), 'normonly' (normalize only, no
     # warp or flip: deterministic views for parity tests and probes)
     augment_backend: str = "auto"
-    host_stream: bool = False  # JAX-package engine knob, not read by the port
-    stream_window: int = 0  # JAX-package engine knob, not read by the port
+    host_stream: bool = False  # JAX-package engine knob: not ported, must be off
+    stream_window: int = 0  # JAX-package engine knob: not ported, must be 0
 
 
 @dataclass(frozen=True)
@@ -66,7 +67,7 @@ class FedMLPConfig:
     # out); tao_min floors τ. Default 0 = released fixed-threshold behavior.
     difficulty_estimate: int = 0
     tao_min: float = 0.1
-    mixup: int = 0  # stage-2 in-batch mixup ablation; not ported yet
+    mixup: int = 0  # stage-2 in-batch mixup ablation; not ported, must be 0
     miss_client_difficulty: int = 1  # parsed by the reference, read nowhere
     # the released reference disables the stage-2 distillation term
     stage2_distill: bool = False
@@ -149,7 +150,9 @@ class Config:
     # torch.autocast on the card
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # JAX-package engine knobs, kept for field parity, not read by the port
+    # JAX-package engine knobs, kept for field parity; check_ported raises
+    # on a value the port has no engine for. dw_backend: '' or 'conv' (the
+    # grouped conv) and 'pallas' (ops/depthwise.py::DepthwisePallas)
     scan_unroll: int = 1
     view_concat: str = "auto"
     view_precat: str = "auto"

@@ -4,8 +4,11 @@ parameters as ``fedmlp_tpu/models/efficientnet.py``.
 Submodules carry the flax names (``stem_conv``, ``block{bi}_{r}.dw_conv``,
 ``head.fc``, ...), so ``weights.py`` maps weights between the two packages
 mechanically. The stem and every depthwise conv pad TF-"SAME" (extra pixel
-right/bottom) before an unpadded conv; the depthwise convs are grouped
-``conv2d`` (the JAX package's default ``dw_backend``). Batch norm follows
+right/bottom) before an unpadded conv. ``dw_backend`` picks the depthwise
+convs: ``'conv'`` (default) is the grouped ``nn.Conv2d``; ``'pallas'`` is
+``ops/depthwise.py::DepthwisePallas``, the same forward with the
+hand-written backward kernels. Both keep one parameter ``dw_conv.weight``
+[C, 1, k, k], so a ``state_dict`` fits either. Batch norm follows
 flax: momentum 0.99 (0.01 here), eps 1e-3, biased variance. Dropout on the
 pooled feature and per-block stochastic depth are active in train mode
 when the forward is given a generator, as flax's are with a 'dropout' rng.
@@ -20,7 +23,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedmlp_tpu_torch.models.heads import LinearHead
-from fedmlp_tpu_torch.models.layers import BatchNorm, drop_connect, dropout, same_pad
+from fedmlp_tpu_torch.models.layers import (
+    BatchNorm,
+    drop_connect,
+    dropout,
+    same_pad,
+    same_pads,
+)
+from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+
+DW_BACKENDS = ("conv", "pallas")
 
 # (expand_ratio, channels, repeats, stride, kernel)
 _B0_BLOCKS = (
@@ -65,16 +77,25 @@ def _bn(ch: int) -> BatchNorm:
 
 class MBConv(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, expand: int, kernel: int,
-                 stride: int, se_ratio: float = 0.25, drop_rate: float = 0.0):
+                 stride: int, se_ratio: float = 0.25, drop_rate: float = 0.0,
+                 dw_backend: str = "conv"):
         super().__init__()
+        if dw_backend not in DW_BACKENDS:
+            raise ValueError(f"dw_backend {dw_backend!r} is not ported; have "
+                             f"{DW_BACKENDS}")
         self.in_ch, self.out_ch = in_ch, out_ch
         self.expand, self.kernel, self.stride = expand, kernel, stride
         self.drop_rate = drop_rate
+        self.dw_backend = dw_backend
         mid = in_ch * expand
         if expand != 1:
             self.expand_conv = nn.Conv2d(in_ch, mid, 1, bias=False)
             self.expand_bn = _bn(mid)
-        self.dw_conv = nn.Conv2d(mid, mid, kernel, stride, groups=mid, bias=False)
+        if dw_backend == "pallas":
+            self.dw_conv = DepthwisePallas(mid, kernel, stride)
+        else:
+            self.dw_conv = nn.Conv2d(mid, mid, kernel, stride, groups=mid,
+                                     bias=False)
         self.dw_bn = _bn(mid)
         se_ch = max(1, int(in_ch * se_ratio))
         self.se_reduce = nn.Conv2d(mid, se_ch, 1)
@@ -86,7 +107,12 @@ class MBConv(nn.Module):
         h = x
         if self.expand != 1:
             h = F.silu(self.expand_bn(self.expand_conv(h)))
-        h = self.dw_conv(same_pad(h, self.kernel, self.stride))
+        k, s = self.kernel, self.stride
+        if self.dw_backend == "pallas":
+            h = self.dw_conv(h, (same_pads(h.shape[2], k, s),
+                                 same_pads(h.shape[3], k, s)))
+        else:
+            h = self.dw_conv(same_pad(h, k, s))
         h = F.silu(self.dw_bn(h))
         s = h.mean(dim=(2, 3), keepdim=True)
         s = self.se_expand(F.silu(self.se_reduce(s)))
@@ -102,7 +128,7 @@ class MBConv(nn.Module):
 class EfficientNet(nn.Module):
     def __init__(self, width_mult: float, depth_mult: float, num_classes: int,
                  blocks=_B0_BLOCKS, dropout_p: float = 0.2,
-                 drop_connect_rate: float = 0.2):
+                 drop_connect_rate: float = 0.2, dw_backend: str = "conv"):
         super().__init__()
         self.dropout_p = dropout_p
         stem = _round_filters(32, width_mult)
@@ -118,7 +144,8 @@ class EfficientNet(nn.Module):
                 name = f"block{bi}_{r}"
                 self.add_module(name, MBConv(
                     in_ch, out_ch, expand, kernel, stride if r == 0 else 1,
-                    drop_rate=drop_connect_rate * gi / n_blocks))
+                    drop_rate=drop_connect_rate * gi / n_blocks,
+                    dw_backend=dw_backend))
                 self.block_names.append(name)
                 in_ch = out_ch
                 gi += 1

@@ -11,6 +11,7 @@ from torch import nn
 
 from fedmlp_tpu_torch.models import efficientnet, smallcnn
 from fedmlp_tpu_torch.models.layers import BatchNorm
+from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
 
 MODEL_REGISTRY = {
     "smallcnn": (smallcnn.smallcnn, smallcnn.FEATURE_DIM),
@@ -35,12 +36,21 @@ def feature_dim_of(name: str) -> int:
     return MODEL_REGISTRY[_canon(name)][1]
 
 
-def build_model(name: str, num_classes: int, **kw) -> nn.Module:
+def is_ported(name: str) -> bool:
+    return _canon(name) in MODEL_REGISTRY
+
+
+def build_model(name: str, num_classes: int, dw_backend: str | None = None,
+                **kw) -> nn.Module:
     """The module for ``name`` with a ``num_classes``-way head, weights
-    uninitialized (see :func:`init_model`)."""
+    uninitialized (see :func:`init_model`). ``dw_backend`` selects the
+    depthwise-conv implementation of the EfficientNet family (see
+    ``MBConv``) and is not passed to other architectures."""
     key = _canon(name)
     if key not in MODEL_REGISTRY:
         raise ValueError(f"Name of model unknown {name}")
+    if dw_backend and key.startswith("efficient_b"):
+        kw["dw_backend"] = dw_backend
     return MODEL_REGISTRY[key][0](num_classes, **kw)
 
 
@@ -60,11 +70,11 @@ def init_model(model: nn.Module, seed: int) -> nn.Module:
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, DepthwisePallas)):
             w = torch.empty(m.weight.shape, dtype=torch.float32)
             _lecun_normal_(w, g)
             m.weight.copy_(w)
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, BatchNorm):
             m.weight.fill_(1.0)

@@ -43,18 +43,19 @@ class BatchNorm(nn.Module):
         return y
 
 
+def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
+    """TF-"SAME" (before, after) zero padding of one spatial dim of size n
+    for a size-k stride-s conv: the extra pixel goes after (``_same_pads``
+    of the JAX EfficientNet, lukemelas' Conv2dStaticSamePadding)."""
+    out = -(-n // s)
+    total = max(0, (out - 1) * s + k - n)
+    return total // 2, total - total // 2
+
+
 def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """TF-"SAME" zero padding for a k×k stride-s conv on NCHW ``x``: the
-    extra pixel goes right/bottom (``_same_pads`` of the JAX EfficientNet,
-    lukemelas' Conv2dStaticSamePadding)."""
-
-    def pads(n):
-        out = -(-n // s)
-        total = max(0, (out - 1) * s + k - n)
-        return total // 2, total - total // 2
-
-    top, bottom = pads(x.shape[2])
-    left, right = pads(x.shape[3])
+    """NCHW ``x`` zero-padded TF-"SAME" for a k×k stride-s conv."""
+    top, bottom = same_pads(x.shape[2], k, s)
+    left, right = same_pads(x.shape[3], k, s)
     return F.pad(x, (left, right, top, bottom))
 
 

@@ -6,6 +6,16 @@ import torch
 import torch.nn.functional as F
 
 
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, pos_weight=None):
+    """Elementwise, unreduced BCE with logits, ``BCEWithLogitsLoss(
+    reduction='none', pos_weight=...)`` semantics:
+    loss = −(pos_w·y·log σ(x) + (1 − y)·log(1 − σ(x)))."""
+    log_p = F.logsigmoid(logits)
+    log_not_p = F.logsigmoid(-logits)
+    pw = 1.0 if pos_weight is None else pos_weight
+    return -(pw * targets * log_p + (1.0 - targets) * log_not_p)
+
+
 def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor, weight=None):
     """Elementwise BCE on probabilities (reference: utils/FedNoRo.py:22).
 

@@ -138,10 +138,10 @@ def fused_warp_normalize(images_u8, params, flip, mean, std):
         return out
     flip_u8 = flip.view(torch.uint8) if flip.dtype == torch.bool else flip
     m, s = _norm_constants(mean, std)
-    stream = torch.cuda.current_stream(images_u8.device).cuda_stream
-    err = lib.fused_warp_normalize_u8(
-        images_u8.data_ptr(), params.data_ptr(), flip_u8.data_ptr(),
-        out.data_ptr(), B, S, *m, *s, stream)
+    with torch.cuda.device(images_u8.device):  # the launch goes to the current device
+        err = lib.fused_warp_normalize_u8(
+            images_u8.data_ptr(), params.data_ptr(), flip_u8.data_ptr(),
+            out.data_ptr(), B, S, *m, *s, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_warp_normalize launch failed: CUDA error {err}")
     LAUNCH_COUNTS["fused_warp_normalize"] += 1

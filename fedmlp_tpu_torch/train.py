@@ -32,9 +32,71 @@ from fedmlp_tpu_torch.data.partition import iid_sampling, non_iid_dirichlet_samp
 from fedmlp_tpu_torch.eval.metrics import multilabel_report
 from fedmlp_tpu_torch.fl import fedavg as agg_fedavg
 from fedmlp_tpu_torch.models import build_model, init_model
+from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
+from fedmlp_tpu_torch.models.factory import is_ported as model_is_ported
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
 
 log = logging.getLogger("fedmlp_tpu_torch")
+
+
+class UnportedConfigError(ValueError):
+    """A ``Config`` value asks for something the port does not implement."""
+
+
+def check_ported(cfg: Config) -> None:
+    """Raise :class:`UnportedConfigError`, naming the field, for every
+    ``Config`` value that selects an algorithm, model, backend or engine of
+    the JAX package that the port has not got. 'auto' and empty values
+    resolve to what the port does: the per-client loop engine, separate
+    forwards per view, device-resident data, grouped-conv depthwise."""
+    bad = []
+
+    def need(ok: bool, field_name: str, value, have: str) -> None:
+        if not ok:
+            bad.append(f"{field_name}={value!r} is not ported ({have})")
+
+    need(cfg.algorithm in algo_registry.registered(), "algorithm", cfg.algorithm,
+         f"have {algo_registry.registered()}")
+    need(model_is_ported(cfg.model), "model", cfg.model,
+         "have smallcnn and efficient_b0..b7")
+    need(cfg.dw_backend in ("",) + DW_BACKENDS, "dw_backend", cfg.dw_backend,
+         f"have '' and {DW_BACKENDS}")
+    need(cfg.client_stacking in ("auto", "off"), "client_stacking",
+         cfg.client_stacking, "the channel-stacked engine is not ported")
+    need(cfg.batched_global in ("auto", "off"), "batched_global",
+         cfg.batched_global, "the lockstep engine is not ported")
+    need(cfg.view_concat in ("auto", "off"), "view_concat", cfg.view_concat,
+         "views run as separate forwards")
+    need(cfg.view_precat in ("auto", "off"), "view_precat", cfg.view_precat,
+         "views run as separate forwards")
+    need(not cfg.weight_stream, "weight_stream", cfg.weight_stream, "have 0")
+    need(not cfg.remat, "remat", cfg.remat, "have 0")
+    need(not cfg.remat_stages, "remat_stages", cfg.remat_stages, "have ''")
+    need(cfg.pre_augment <= 0, "pre_augment", cfg.pre_augment,
+         "have -1 (auto) and 0: views are made inside the round")
+    need(not cfg.hoist_augment, "hoist_augment", cfg.hoist_augment, "have 0")
+    need(cfg.scan_unroll == 1, "scan_unroll", cfg.scan_unroll, "have 1")
+    need(not cfg.client_unroll, "client_unroll", cfg.client_unroll, "have 0")
+    need(not cfg.small_pack, "small_pack", cfg.small_pack, "have 0")
+    need(cfg.param_dtype == "float32", "param_dtype", cfg.param_dtype,
+         "parameters are float32")
+    need(cfg.compute_dtype in ("float32", "bfloat16"), "compute_dtype",
+         cfg.compute_dtype, "have float32 and bfloat16")
+    need(not cfg.pretrained_path, "pretrained_path", cfg.pretrained_path,
+         "loading converted weights is not ported")
+    need(not cfg.data.host_stream, "data.host_stream", cfg.data.host_stream,
+         "data is device-resident")
+    need(not cfg.data.stream_window, "data.stream_window", cfg.data.stream_window,
+         "data is device-resident")
+    need(cfg.data.augment_backend in ("auto", "fused", "normonly"),
+         "data.augment_backend", cfg.data.augment_backend,
+         "have auto, fused and normonly")
+    need(not cfg.fedmlp.mixup, "fedmlp.mixup", cfg.fedmlp.mixup,
+         "the stage-2 mixup ablation is not ported")
+    need(cfg.mesh.data_axis == 1 and cfg.mesh.client_axis in (-1, 1),
+         "mesh", cfg.mesh, "one device")
+    if bad:
+        raise UnportedConfigError("; ".join(bad))
 
 
 @dataclass
@@ -56,6 +118,7 @@ class Trainer:
 
     def __post_init__(self):
         cfg = self.cfg
+        check_ported(cfg)
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -103,8 +166,10 @@ class Trainer:
 
         # ---- model: one working module trains every client in turn; a
         # second holds the frozen global model for NEEDS_GLOBAL algorithms
-        self.model = init_model(build_model(cfg.model, cfg.n_classes),
-                                cfg.seed).to(self.device)
+        dw_backend = cfg.dw_backend or None
+        self.model = init_model(
+            build_model(cfg.model, cfg.n_classes, dw_backend=dw_backend),
+            cfg.seed).to(self.device)
         self.global_vars = {n: v.detach().clone()
                             for n, v in self.model.state_dict().items()}
 
@@ -112,7 +177,8 @@ class Trainer:
         self.algo = algo_registry.get_algorithm(cfg.algorithm)
         self.global_model = None
         if self.algo.NEEDS_GLOBAL or cfg.fedmlp.stage2_distill:
-            self.global_model = build_model(cfg.model, cfg.n_classes).to(self.device)
+            self.global_model = build_model(
+                cfg.model, cfg.n_classes, dw_backend=dw_backend).to(self.device)
             self.global_model.requires_grad_(False)
         self.round_fn = rt.make_local_round(
             self.model, self.algo.loss_fn,
@@ -133,13 +199,29 @@ class Trainer:
         # augmentation, dropout and stochastic-depth draws
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
+        self.iter_num = 0  # lifetime local-step counter (reference iter_num)
 
     # ------------------------------------------------------------------
     def client_ctx(self) -> dict:
-        """Per-client context [K, C] that the loss functions read: the
-        annotated (active) and missing (negative) class masks."""
-        active_f = self.fd.active.float()
-        return {"active": active_f, "negative": 1.0 - active_f}
+        """Per-client context (leading axis K) that the loss functions
+        read: the annotated (active) and missing (negative) class masks,
+        the positive-class weights, class counts and dataset sizes, plus
+        whatever the algorithm's ``extra_ctx`` hook adds."""
+        fd = self.fd
+        active_f = fd.active.float()
+        # loss_w_unknown: 1 everywhere except active classes (reference:
+        # utils/local_training.py:41-42)
+        ctx = {
+            "active": active_f,
+            "negative": 1.0 - active_f,
+            "loss_w": fd.loss_w,
+            "loss_w_unknown": active_f * fd.loss_w + (1.0 - active_f),
+            "class_num": fd.class_num,
+            "n_local": fd.n_local.float(),
+        }
+        if hasattr(self.algo, "extra_ctx"):
+            ctx.update(self.algo.extra_ctx(self))
+        return ctx
 
     def local_pass(self, round_fn, sample_arrays: dict, scalars: dict):
         """One local-training pass for all clients with fresh batch plans;
@@ -150,7 +232,9 @@ class Trainer:
         data = {"images": self.fd.images, "idx": self.fd.idx,
                 "ctx": self.client_ctx()}
         plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays}
-        return round_fn(self.global_vars, data, plan, scalars, self.generator)
+        out = round_fn(self.global_vars, data, plan, scalars, self.generator)
+        self.iter_num += pos.shape[0]
+        return out
 
     def aggregate(self, svars: dict, weights) -> dict:
         """Dataset-size-weighted FedAvg over the client-stacked variables."""
@@ -160,13 +244,27 @@ class Trainer:
         return rt.broadcast_to_clients(global_vars, self.n_clients)
 
     def round_scalars(self, rnd: int) -> dict:
-        return {"rnd": float(rnd)}
+        base = {"rnd": float(rnd)}
+        if hasattr(self.algo, "round_scalars"):
+            base.update(self.algo.round_scalars(self, rnd))
+        return base
 
     # ------------------------------------------------------------------
     def run_round(self, rnd: int) -> RoundRecord:
         cfg = self.cfg
         t0 = time.time()
-        losses = self.algo.custom_round(self, rnd)
+        if hasattr(self.algo, "custom_round"):
+            losses = self.algo.custom_round(self, rnd)
+        else:
+            state, losses = self.local_pass(
+                self.round_fn, {"labels": self.fd.obs_targets},
+                self.round_scalars(rnd))
+            # server aggregation (an algorithm may override it)
+            if hasattr(self.algo, "server_update"):
+                self.global_vars, self.server_state = self.algo.server_update(
+                    self, rnd, state["vars"], self.server_state)
+            else:
+                self.global_vars = self.aggregate(state["vars"], self.dict_len)
         rec = RoundRecord(rnd, losses.cpu().numpy().tolist(), None, time.time() - t0)
         if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds_warmup - 1:
             rec.metrics = self.evaluate()

@@ -9,6 +9,8 @@ port with fedmlp_tpu_torch/weights.py, and both sides draw the same batch
 plans from the same numpy stream.
 """
 
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -32,6 +34,7 @@ from fedmlp_tpu_torch.parallel import fl_runtime as trt
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
 
+_REPO = pathlib.Path(__file__).resolve().parents[1]
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 BLOCKS = ((1, 16, 1, 1, 3), (6, 24, 2, 2, 3))
 C, B, IMG = 4, 4, 32
@@ -221,15 +224,42 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools"))
-assert len(names) >= 20, names
+assert len(names) >= 29, names
+for needed in ("cli", "algos.fedavg", "eval.evaluate", "ops.depthwise", "ops.dw_pallas",
+               "utils.checkpoint", "utils.logging"):
+    assert "fedmlp_tpu_torch." + needed in names, needed
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools"))
 assert not bad, bad
 print(len(names))
 """
 
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools")
+
 
 def test_port_imports_no_jax_nor_the_jax_package():
-    """Every module of fedmlp_tpu_torch imports in a fresh interpreter
-    without pulling in jax, flax, optax, fedmlp_tpu or tools."""
+    """Every module of fedmlp_tpu_torch, and chip_smoke.py, imports in a
+    fresh interpreter without pulling in jax, flax, optax, fedmlp_tpu or
+    tools."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, cwd=_REPO)
     assert out.returncode == 0, out.stderr
+
+
+def test_no_port_file_names_jax_in_an_import_statement():
+    """The same over the source of every file of the package and of
+    chip_smoke.py, imports inside functions included (those run only on
+    the card, where the fresh-interpreter test cannot reach them)."""
+    files = sorted((_REPO / "fedmlp_tpu_torch").rglob("*.py")) + [_REPO / "chip_smoke.py"]
+    assert len(files) >= 37
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                assert mod.split(".")[0] not in _FORBIDDEN, f"{f}: imports {mod}"

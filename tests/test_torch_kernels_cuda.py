@@ -11,6 +11,7 @@ Without a card every test skips.
 import pytest
 import torch
 
+from fedmlp_tpu_torch.ops import dw_pallas as D
 from fedmlp_tpu_torch.ops import warp as W
 
 MEAN = (0.485, 0.456, 0.406)
@@ -59,3 +60,108 @@ def test_fused_warp_kernel_rejects_strided_input(card):
     imgs, params, flip = _batch(card, 2, 32, seed=0)
     with pytest.raises(ValueError, match="contiguous"):
         W.fused_warp_normalize(imgs.transpose(1, 2), params, flip, MEAN, STD)
+
+
+def _dw_operands(dev, B, C, H, k, stride, pads, dtype, seed=0):
+    """x, the zero-dilated cotangent, the flipped filter and the dx pads of
+    one depthwise layer's backward."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    (pt, pb), (pl, pr) = pads
+    Ho = (H + pt + pb - k) // stride + 1
+    x = torch.randn((B, C, H, H), generator=g, device=dev).to(dtype)
+    dy = torch.randn((B, C, Ho, Ho), generator=g, device=dev).to(dtype)
+    w = torch.randn((C, 1, k, k), generator=g, device=dev).to(dtype)
+    dy_e = D.dilate_to_input(dy, stride, H, H).contiguous()
+    return x, dy_e, w.flip(2, 3).contiguous(), ((k - 1 - pt, pt), (k - 1 - pl, pl))
+
+
+_DW_CASES = [
+    # B, C, H, k, stride, pads
+    (3, 5, 9, 5, 1, ((1, 3), (4, 0))),      # odd size, uneven pad split
+    (2, 7, 7, 5, 1, ((2, 2), (2, 2))),      # more padding than data
+    (4, 24, 30, 3, 2, ((0, 1), (0, 1))),    # stride 2 through the dilation
+    (2, 6, 113, 5, 2, ((2, 2), (2, 2))),    # odd, several row tiles
+    (8, 16, 56, 3, 1, ((1, 1), (1, 1))),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,k,stride,pads", _DW_CASES)
+def test_dw_kernels_match_plain_versions(card, B, C, H, k, stride, pads, dtype):
+    """``dw_conv_s1`` and ``dw_wgrad_s1`` against their plain versions.
+    dx: 1e-5 in float32 (FMA against separately rounded products and sums),
+    one bf16 ulp (2^-7 relative) in bf16. dw: 1e-4 of the largest |dw|
+    (float32 sums in another order); a repeat gives the same bits."""
+    x, dy_e, wf, dx_pads = _dw_operands(card, B, C, H, k, stride, pads, dtype)
+    D.reset_launch_counts()
+    dx = D.dw_conv_s1(dy_e, wf, dx_pads)
+    dw = D.dw_wgrad_s1(x, dy_e, k, pads)
+    dw_again = D.dw_wgrad_s1(x, dy_e, k, pads)
+    torch.cuda.synchronize()
+    assert D.LAUNCH_COUNTS == {"dw_conv_s1": 1, "dw_wgrad_s1": 2}
+    dx_ref = D.dw_conv_s1_ref(dy_e, wf, dx_pads)
+    dw_ref = D.dw_wgrad_s1_ref(x, dy_e, k, pads)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dw.dtype == torch.float32 and dw.shape == (C, 1, k, k)
+    err = (dx.float() - dx_ref.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5
+    else:
+        assert bool((err <= dx_ref.float().abs() * 2.0 ** -7 + 1e-6).all())
+    assert float((dw - dw_ref).abs().max()) <= 1e-4 * float(dw_ref.abs().max())
+    assert torch.equal(dw, dw_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,H", [(3, 1, 14), (5, 2, 14), (3, 2, 15)])
+def test_dw_conv_pallas_backward_matches_conv2d_on_the_card(card, k, stride, H):
+    """The autograd function on CUDA tensors, under bf16 autocast, against
+    ``F.conv2d``'s own backward (cuDNN, TF32 off) in float32 on the
+    bf16-rounded operands: gradients within bf16's rounding (rtol 2^-6 of
+    the largest value)."""
+    from fedmlp_tpu_torch.models.layers import same_pads
+    from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(1)
+    C = 12
+    m = DepthwisePallas(C, k, stride).to(card)
+    with torch.no_grad():
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g, device=card))
+    x = torch.randn((4, C, H, H), generator=g, device=card, requires_grad=True)
+    pads = (same_pads(H, k, stride), same_pads(H, k, stride))
+    D.reset_launch_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = m(x, pads)
+    assert y.dtype == torch.bfloat16
+    ct = torch.randn(y.shape, generator=g, device=card).bfloat16()
+    y.backward(ct)
+    assert D.LAUNCH_COUNTS == {"dw_conv_s1": 1, "dw_wgrad_s1": 1}
+
+    x2 = x.detach().bfloat16().float().requires_grad_(True)
+    w2 = m.weight.detach().bfloat16().float().requires_grad_(True)
+    (pt, pb), (pl, pr) = pads
+    y2 = torch.nn.functional.conv2d(
+        torch.nn.functional.pad(x2, (pl, pr, pt, pb)), w2, None, stride, 0, 1, C)
+    y2.backward(ct.float())
+    for got, want in ((x.grad, x2.grad), (m.weight.grad, w2.grad)):
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_dw_kernels_reject_what_they_do_not_take(card):
+    """A CUDA tensor gets the kernel or an exception, never the plain
+    version."""
+    x = torch.zeros((2, 4, 8, 8), device=card)
+    w = torch.zeros((4, 1, 3, 3), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        D.dw_conv_s1(x.transpose(2, 3), w, ((1, 1), (1, 1)))
+    with pytest.raises(ValueError, match="contiguous"):
+        D.dw_wgrad_s1(x, x.transpose(2, 3), 3, ((1, 1), (1, 1)))
+    w7 = torch.zeros((4, 1, 7, 7), device=card)
+    with pytest.raises(ValueError, match="k in"):
+        D.dw_conv_s1(x, w7, ((3, 3), (3, 3)))
+    with pytest.raises(ValueError, match="match x's type and device"):
+        D.dw_conv_s1(x, w.cpu(), ((1, 1), (1, 1)))
