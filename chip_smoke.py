@@ -10,10 +10,12 @@ first failure:
 1. build:  nvcc compiles every ``fedmlp_tpu_torch/csrc/*.cu`` (one process
    per source, all at once) into ``fedmlp_tpu_torch/_build/``.
 2. kernel: each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it (the warp at B=32, 224 px; the two
-   depthwise kernels at the 16 depthwise layers of EfficientNet-B0), with its
-   median time (CUDA events), the plain version's time, its bound and, where
-   one PyTorch call computes the same function, that call's time.
+   shapes the main path gives it (the warp, the shear pass and the
+   normalize/flip/cutout pass at B=32, 224 px; the two depthwise kernels at
+   the 16 depthwise layers of EfficientNet-B0; the masked BCE sum at
+   [32, 8]), with its median time (CUDA events), the plain version's time,
+   its bound and, where one PyTorch call computes the same function, that
+   call's time.
 3. slice:  the port's FedMLP ``Trainer`` at the flagship geometry
    (EfficientNet-B0, 224 px, batch 32, 20 clients, bf16): two stage-1 rounds
    (the second harvests prototypes), one stage-2 round, then evaluation. On
@@ -25,8 +27,18 @@ first failure:
 5. cli:    ``fedmlp_tpu_torch.cli.main`` in-process: FedAVG, 4 clients,
    EfficientNet-B0 with ``--dw_backend pallas``, 2 rounds with a checkpoint
    each, then ``--resume`` from round 0's checkpoint; round 1 must repeat.
-6. profile (only when asked for): where a stage-1 round's device time goes,
-   for both depthwise backends.
+6. slice_strong: FedAVG+FixMatch at the geometry of the ladder's FixMatch
+   rung (tools/ladder.py: EfficientNet-B0, 224 px, batch 32, 20 clients, 8
+   classes, p_pos=0, bf16), one round and the evaluation: the weak view
+   through ``fused_warp_normalize``, the strong view through nine
+   ``hshift_rows`` passes, both loss sums through
+   ``bce_with_logits_masked_sum``, the test transform through
+   ``normalize_flip_cutout``. Then CBAFed, 4 clients, warm-up 1, two rounds:
+   the second runs the pseudo-label loss with the threshold vector that the
+   first set.
+7. profile, profile_strong (only when asked for): where a stage-1 round's
+   device time goes, for both depthwise backends; what the strong view costs
+   a FixMatch step.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -51,6 +63,8 @@ F32_FLOP_PER_S = 67e12
 
 # flagship geometry (bench.py::_bench_fedmlp)
 K, B, SIZE, N, N_CLASSES = 20, 32, 224, 2560, 8
+# test images of every path: the evaluation sends them as one chunk
+N_TEST = 64
 
 
 def card_line() -> str:
@@ -155,6 +169,213 @@ def phase_kernel_warp(dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
     }
+
+
+def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """(bound ms, what binds) of a function that must move ``n_bytes`` and
+    do ``n_flops`` float32 operations outside the tensor cores."""
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = n_flops / F32_FLOP_PER_S * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def phase_kernel_hshift(dev) -> dict:
+    """``hshift_rows`` at B=32, 3x224x224 on both axes: the weak range
+    (Paeth shift vectors of the weak draws), the RandAugment pool's largest
+    shifts (shear 0.27 a line: up to 60.2 px; translate 60 px), an integer
+    shift (an exact copy) and a shift beyond the plane (zeros). Times are of
+    the weak-range pass, every run from a flushed L2."""
+    from fedmlp_tpu_torch.ops import warp
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1037)
+    x = torch.rand((B, 3, SIZE, SIZE), generator=g, device=dev) * 255.0
+    ang, tx, ty, _ = warp.weak_params(B, SIZE, SIZE, g, dev)
+    s1, s2, _ = warp.paeth_shift_vectors(torch.deg2rad(ang), tx, ty, SIZE, SIZE)
+    line = torch.arange(SIZE, dtype=torch.float32, device=dev)[None]
+    sign = torch.where(torch.arange(B, device=dev) % 2 == 0, 1.0, -1.0)[:, None]
+    pool = torch.where((torch.arange(B, device=dev) < B // 2)[:, None],
+                       sign * 0.27 * line, sign * 60.0 + 0.0 * line)
+    cases = {"weak": {3: s1.contiguous(), 2: s2.contiguous()},
+             "pool": {3: pool.contiguous(), 2: pool.contiguous()},
+             "integer": {a: torch.full((B, SIZE), 7.0, device=dev) for a in (3, 2)},
+             "beyond": {a: torch.full((B, SIZE), 300.0, device=dev) for a in (3, 2)}}
+    # tolerance: the kernel rounds every product and sum on its own in the
+    # plain version's order, so the two are equal to the last bit; 1e-4 on
+    # the 0..255 scale allows for a compiler that contracts on one side
+    tol, err = 1e-4, 0.0
+    for name, by_axis in cases.items():
+        for axis, shifts in by_axis.items():
+            got = warp.hshift_rows(x, shifts, axis)
+            ref = warp.hshift_rows_ref(x, shifts, axis)
+            torch.cuda.synchronize()
+            e = (got - ref).abs().max().item()
+            err = max(err, e)
+            print(f"phase kernel: hshift_rows {name} axis={axis} max|s|="
+                  f"{shifts.abs().max().item():.1f} max_abs_err={e:.3e} (tol {tol:g})")
+            if not math.isfinite(e) or e > tol:
+                raise SystemExit(f"hshift_rows disagrees with its plain version: {name}")
+            moved = got if axis == 3 else got.transpose(2, 3)
+            src = x if axis == 3 else x.transpose(2, 3)
+            if name == "integer" and not torch.equal(moved[..., :-7], src[..., 7:]):
+                raise SystemExit("hshift_rows: an integer shift is not an exact copy")
+            if name == "beyond" and got.any():
+                raise SystemExit("hshift_rows: a shift beyond the plane left pixels")
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    ms_h = cuda_ms(lambda: warp.hshift_rows(x, cases["weak"][3], 3), 50, 5, flush)
+    ms_v = cuda_ms(lambda: warp.hshift_rows(x, cases["weak"][2], 2), 50, 5, flush)
+    plain_ms = cuda_ms(lambda: warp.hshift_rows_ref(x, cases["weak"][3], 3), 10, 2, flush)
+    # a warp is (horizontal, vertical, horizontal): the mean launch of the path
+    ms = (2.0 * ms_h + ms_v) / 3.0
+    # the planes read once and written once, the shifts read; 4 flops a pixel
+    bound_ms, bound_by = _bound(2 * x.numel() * 4 + B * SIZE * 4, 4 * x.numel())
+    print(f"phase kernel: hshift_rows B={B} 3x{SIZE}x{SIZE} ms={ms:.4f} "
+          f"(horizontal {ms_h:.4f}, vertical {ms_v:.4f}) plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
+          f"library_ms=null (no single PyTorch call computes this shift)")
+    return {
+        "name": "hshift_rows", "route": "cuda",
+        "source": "fedmlp_tpu_torch/csrc/hshift.cu",
+        "replaces": "fedmlp_tpu/ops/pallas_warp.py:109",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def phase_kernel_preproc(dev) -> dict:
+    """``normalize_flip_cutout`` at B=32, 224 px: mixed flips; a 16 px box, a
+    zero box (cutout off) and a box cut by the border, in turn. Then the
+    call the paths make: ``eval_batch`` on the evaluation's chunk of
+    ``N_TEST`` images, with neither flips nor boxes."""
+    from fedmlp_tpu_torch.ops import augment, pallas_ops
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1037)
+    imgs = torch.randint(0, 256, (B, SIZE, SIZE, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    flips = (torch.rand((B,), generator=g, device=dev) < 0.5).to(torch.int32)
+    boxes = torch.tensor([[40, 50, 56, 66], [0, 0, 0, 0],
+                          [SIZE - 5, SIZE - 9, SIZE + 11, SIZE + 7]],
+                         dtype=torch.int32, device=dev).repeat(B, 1)[:B].contiguous()
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    got = pallas_ops.normalize_flip_cutout(imgs, flips, boxes, mean, std)
+    ref = pallas_ops.normalize_flip_cutout_ref(imgs, flips, boxes, mean, std)
+    torch.cuda.synchronize()
+    err_box = (got - ref).abs().max().item()
+    # tolerance: one subtraction and one correctly rounded division a value
+    tol = 1e-6
+    print(f"phase kernel: normalize_flip_cutout B={B} {SIZE}px flips={int(flips.sum())} "
+          f"max_abs_err={err_box:.3e} (tol {tol:g})")
+    if not math.isfinite(err_box) or err_box > tol or got.shape != (B, SIZE, SIZE, 3):
+        raise SystemExit(f"normalize_flip_cutout disagrees with its plain version: {err_box}")
+    chunk = torch.randint(0, 256, (N_TEST, SIZE, SIZE, 3), generator=g, device=dev,
+                          dtype=torch.uint8)
+    got = augment.eval_batch(chunk, mean, std)
+    ref = pallas_ops.normalize_flip_cutout_ref(chunk, None, None, mean, std)
+    torch.cuda.synchronize()
+    err_eval = (got - ref.permute(0, 3, 1, 2)).abs().max().item()
+    print(f"phase kernel: normalize_flip_cutout through eval_batch B={N_TEST} {SIZE}px "
+          f"no flips, no boxes max_abs_err={err_eval:.3e} (tol {tol:g})")
+    if (not math.isfinite(err_eval) or err_eval > tol
+            or got.shape != (N_TEST, 3, SIZE, SIZE)):
+        raise SystemExit(f"eval_batch disagrees with the plain normalize: {err_eval}")
+    err = max(err_box, err_eval)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: pallas_ops.normalize_flip_cutout(imgs, flips, boxes, mean, std),
+                 50, 5, flush)
+    plain_ms = cuda_ms(lambda: pallas_ops.normalize_flip_cutout_ref(
+        imgs, flips, boxes, mean, std), 10, 2, flush)
+    # u8 read once, f32 written once, flips and boxes read; 2 flops a value
+    bound_ms, bound_by = _bound(imgs.numel() * 5 + B * 20, 2 * imgs.numel())
+    print(f"phase kernel: normalize_flip_cutout ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
+          f"library_ms=null (no single PyTorch call flips, fills and normalizes)")
+    return {
+        "name": "normalize_flip_cutout", "route": "cuda",
+        "source": "fedmlp_tpu_torch/csrc/preproc.cu",
+        "replaces": "fedmlp_tpu/ops/pallas_ops.py:66",
+        "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def _bce_case(dev, g, n_rows: int):
+    x = torch.randn((n_rows, N_CLASSES), generator=g, device=dev) * 4.0
+    x[0, 0], x[0, 1], x[-1, -1] = 30.0, -30.0, -30.0
+    y = (torch.rand((n_rows, N_CLASSES), generator=g, device=dev) < 0.4).float()
+    y[0, 0], y[0, 1] = 0.0, 1.0  # the saturated logits on their costly side
+    pw = torch.rand((N_CLASSES,), generator=g, device=dev) * 3.5 + 0.5
+    mask = (torch.rand((n_rows, N_CLASSES), generator=g, device=dev) < 0.7).float()
+    return x, y, pw, mask
+
+
+def phase_kernel_bce(dev) -> dict:
+    """``bce_with_logits_masked_sum`` at the training shape [32, 8] (logits
+    up to +-30): forward and gradient against the plain version, equal bits
+    on a repeat; then at [65536, 8], where bytes and not a launch bind. The
+    library yardstick is ``F.binary_cross_entropy_with_logits(weight=mask,
+    pos_weight=pw, reduction='sum')``."""
+    import torch.nn.functional as F
+
+    from fedmlp_tpu_torch.ops import pallas_ops
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1037)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    row = None
+    for n_rows in (B, 65536):
+        x, y, pw, mask = _bce_case(dev, g, n_rows)
+        x.requires_grad_(True)
+        got = pallas_ops.bce_with_logits_masked_sum(x, y, pw, mask)
+        again = pallas_ops.bce_with_logits_masked_sum(x, y, pw, mask)
+        got.backward()
+        x2 = x.detach().clone().requires_grad_(True)
+        ref = pallas_ops.bce_with_logits_masked_sum_ref(x2, y, pw, mask)
+        ref.backward()
+        exact = pallas_ops.bce_with_logits_masked_sum_ref(
+            x.detach().double(), y.double(), pw.double(), mask.double())
+        torch.cuda.synchronize()
+        err = abs(got.item() - ref.item())
+        err64 = abs(got.item() - exact.item())
+        # tolerance: f32 sums of n terms in another order than the plain
+        # version's: 1e-5 of the value against the plain version run in
+        # float64, twice that against the float32 one (which carries its own
+        # rounding); the gradient is the same closed form, elementwise: 1e-6
+        tol = 1e-5 * abs(exact.item())
+        gerr = (x.grad - x2.grad).abs().max().item()
+        print(f"phase kernel: bce_with_logits_masked_sum [{n_rows}, {N_CLASSES}] "
+              f"value={got.item():.6f} max_abs_err={err:.3e} (tol {2 * tol:.3e}) "
+              f"err_vs_float64={err64:.3e} (tol {tol:.3e}) grad_err={gerr:.3e} "
+              f"(tol 1e-06) repeat_equal={torch.equal(got, again)}")
+        if (not math.isfinite(got.item()) or err > 2 * tol or err64 > tol
+                or gerr > 1e-6):
+            raise SystemExit(f"bce_with_logits_masked_sum disagrees at {n_rows} rows")
+        if not torch.equal(got, again):
+            raise SystemExit("bce_with_logits_masked_sum gave different bits on a repeat")
+        xd = x.detach()
+        ms = cuda_ms(lambda: pallas_ops.bce_with_logits_masked_sum(xd, y, pw, mask),
+                     50, 5, flush)
+        plain_ms = cuda_ms(lambda: pallas_ops.bce_with_logits_masked_sum_ref(
+            xd, y, pw, mask), 20, 3, flush)
+        library_ms = cuda_ms(lambda: F.binary_cross_entropy_with_logits(
+            xd, y, weight=mask, pos_weight=pw, reduction="sum"), 50, 5, flush)
+        # three [B, C] operands and pos_weight read once, a scalar written;
+        # about 25 flops an element (two log-sigmoids, the blend, the mask)
+        bound_ms, bound_by = _bound(3 * x.numel() * 4 + pw.numel() * 4 + 4,
+                                    25 * x.numel())
+        print(f"phase kernel: bce_with_logits_masked_sum [{n_rows}, {N_CLASSES}] "
+              f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"bound_ms={bound_ms:.6f} share={bound_ms / ms:.4f} (library: "
+              f"F.binary_cross_entropy_with_logits, reduction='sum')")
+        if row is None:  # the training shape is the one the main path runs
+            row = {
+                "name": "bce_with_logits_masked_sum", "route": "cuda",
+                "source": "fedmlp_tpu_torch/csrc/bce.cu",
+                "replaces": "fedmlp_tpu/ops/pallas_ops.py:149",
+                "launches": None, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            }
+    return row
 
 
 def dw_layer_calls(dev) -> list:
@@ -330,25 +551,28 @@ def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
         n_clients=n_clients, local_ep=1, rounds_warmup=4, eval_every=10**6,
         seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1),
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
-                        synthetic_train_size=n_train, synthetic_test_size=64),
+                        synthetic_train_size=n_train, synthetic_test_size=N_TEST),
         compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="",
     )
 
 
 def reset_launch_counts() -> None:
-    from fedmlp_tpu_torch.ops import dw_pallas, warp
+    from fedmlp_tpu_torch.ops import dw_pallas, pallas_ops, warp
 
-    warp.reset_launch_counts()
-    dw_pallas.reset_launch_counts()
+    for mod in (warp, dw_pallas, pallas_ops):
+        mod.reset_launch_counts()
 
 
 def read_launch_counts() -> dict:
-    from fedmlp_tpu_torch.ops import dw_pallas, warp
+    from fedmlp_tpu_torch.ops import dw_pallas, pallas_ops, warp
 
-    return {**warp.LAUNCH_COUNTS, **dw_pallas.LAUNCH_COUNTS}
+    return {**warp.LAUNCH_COUNTS, **dw_pallas.LAUNCH_COUNTS, **pallas_ops.LAUNCH_COUNTS}
 
 
 def check_launches(path: str, launches: dict, expected: dict) -> None:
+    """``expected`` names the kernels the path launches; every other kernel
+    must not have been launched at all."""
+    expected = {**dict.fromkeys(launches, 0), **expected}
     print(f"phase {path}: launches {launches}, expected {expected}")
     if launches != expected:
         raise SystemExit(f"{path}: kernels launched {launches}, expected {expected}")
@@ -437,6 +661,85 @@ def phase_slice_dw(dev, card: str, conv_seconds) -> dict:
     return launches
 
 
+def strong_config(algorithm: str, n_clients: int, rounds: int, **kw):
+    """The ladder's FixMatch rung (tools/ladder.py ``baseline-fixmatch-
+    20client`` through bench.py::_bench_fedavg): EfficientNet-B0, 224 px,
+    batch 32, 8 classes, p_pos=0, bf16, synthetic, 128 images a client."""
+    from fedmlp_tpu_torch.config import Config, DataConfig
+
+    return Config(
+        algorithm=algorithm, model="efficient_b0", batch_size=B, base_lr=3e-5,
+        n_clients=n_clients, local_ep=1, rounds_warmup=rounds, eval_every=10**6,
+        seed=1037, p_pos=0.0,
+        data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
+                        synthetic_train_size=n_clients * 4 * B,
+                        synthetic_test_size=N_TEST),
+        compute_dtype="bfloat16", output_dir="", **kw)
+
+
+def run_rounds(path: str, card: str, tr, n_rounds: int) -> list:
+    """``n_rounds`` rounds of ``tr`` (the last one evaluates); finite losses
+    and metrics, or SystemExit. Returns the seconds of each round."""
+    imgs_per_round = int(tr.fd.valid.sum().item()) * tr.cfg.local_ep
+    seconds = []
+    for rnd in range(n_rounds):
+        t1 = time.perf_counter()
+        rec = tr.run_round(rnd)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        seconds.append(secs)
+        print(f"phase {path}: round {rnd} {secs:.3f} s {imgs_per_round / secs:.1f} img/s "
+              f"mean loss {sum(rec.client_losses) / tr.n_clients:.5f}"
+              f"{' evaluation included' if rec.metrics else ''} [{card}]")
+        if not all(math.isfinite(x) for x in rec.client_losses):
+            raise SystemExit(f"{path}: non-finite client losses {rec.client_losses}")
+    if not rec.metrics or not all(math.isfinite(v) for v in rec.metrics.values()):
+        raise SystemExit(f"{path}: no or non-finite final metrics {rec.metrics}")
+    print(f"phase {path}: global_test {json.dumps(rec.metrics)}")
+    return seconds
+
+
+def phase_slice_strong(dev, card: str) -> dict:
+    """FedAVG+FixMatch, one round of 20 clients and the evaluation, then
+    CBAFed, 4 clients, warm-up 1, two rounds. Returns the launch counts of
+    each as a path of its own."""
+    from fedmlp_tpu_torch.config import CBAFedConfig
+    from fedmlp_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(strong_config("fixmatch", K, 1), device=dev)
+    torch.cuda.synchronize()
+    print(f"phase slice_strong: setup {time.perf_counter() - t0:.2f} s")
+    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
+    reset_launch_counts()
+    run_rounds("slice_strong", card, tr, 1)
+    fixmatch = read_launch_counts()
+    # a step makes the weak view with one warp launch and the strong view
+    # with 3 shear passes for the affine prefix and 3 for each of the 2
+    # RandAugment layers; its loss is two masked BCE sums; the evaluation
+    # normalizes its 64 test images in one chunk
+    check_launches("slice_strong", fixmatch, {
+        "fused_warp_normalize": steps, "hshift_rows": 9 * steps,
+        "bce_with_logits_masked_sum": 2 * steps, "normalize_flip_cutout": 1})
+
+    tr = Trainer(strong_config("cbafed", 4, 2, cbafed=CBAFedConfig(rounds_warmup=1)),
+                 device=dev)
+    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
+    reset_launch_counts()
+    run_rounds("slice_cbafed", card, tr, 2)
+    cbafed = read_launch_counts()
+    tao = tr.server_state["tao"]
+    print(f"phase slice_cbafed: tao {tao.tolist()}, residual of "
+          f"{len(tr.server_state['residual'])} variables")
+    if not hasattr(tr, "_cbafed_pseudo_fn"):
+        raise SystemExit("slice_cbafed: the pseudo-label round did not run")
+    if not ((tao >= 0.55) & (tao <= 0.95)).all():
+        raise SystemExit(f"slice_cbafed: tao outside [0.55, 0.95]: {tao}")
+    check_launches("slice_cbafed", cbafed, {
+        "fused_warp_normalize": 2 * steps, "normalize_flip_cutout": 1})
+    return {"slice_strong": fixmatch, "slice_cbafed": cbafed}
+
+
 def _read_losses(metrics_path: str) -> dict:
     """{round: [client losses]} from a ``metrics.jsonl``, later records of a
     (round, client) replacing earlier ones."""
@@ -469,7 +772,7 @@ def phase_cli(dev, card: str) -> dict:
                 "--image_size", str(SIZE), "--batch_size", str(B), "--p_pos", "1",
                 "--base_lr", "3e-5", "--compute_dtype", "bfloat16",
                 "--synthetic_train_size", str(n_clients * 128),
-                "--synthetic_test_size", "64", "--dw_backend", "pallas",
+                "--synthetic_test_size", str(N_TEST), "--dw_backend", "pallas",
                 "--rounds", str(rounds), "--checkpoint_every", "1",
                 "--eval_every", "1000000", "--seed", "1037",
                 "--output_dir", out, "--exp_tag", "smoke"]
@@ -489,9 +792,11 @@ def phase_cli(dev, card: str) -> dict:
         print(f"phase cli: {rounds} FedAVG rounds in {secs:.2f} s (set-up and final "
               f"evaluation included) losses {first} [{card}]")
         steps = n_clients * (128 // B) * rounds
+        # the last round evaluates: 64 test images, one chunk of the test
+        # transform
         check_launches("cli", launches, {
             "fused_warp_normalize": steps, "dw_conv_s1": 16 * steps,
-            "dw_wgrad_s1": 16 * steps})
+            "dw_wgrad_s1": 16 * steps, "normalize_flip_cutout": 1})
 
         cli.main(argv + ["--resume", ckpts[0]])
         torch.cuda.synchronize()
@@ -556,6 +861,99 @@ def layer_host_us(dev, backend: str, iters: int = 300) -> float:
     return (time.perf_counter() - t0) / iters * 1e6
 
 
+def profiled(fn) -> tuple:
+    """Run ``fn()`` under ``torch.profiler`` → (wall seconds, device
+    microseconds by kernel name, device operations by kernel name)."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    by_name, counts = defaultdict(float), defaultdict(int)
+    for e in prof.events():
+        # a user annotation (e.g. Optimizer.step) spans kernels that are
+        # counted on their own already
+        if e.device_type == DeviceType.CUDA and not getattr(
+                e, "is_user_annotation", False):
+            by_name[e.name] += e.time_range.elapsed_us()
+            counts[e.name] += 1
+    return wall_s, by_name, counts
+
+
+def phase_profile_strong(dev, card: str) -> None:
+    """What the strong view costs a FixMatch step. First the views alone at
+    B=32, 224 px, 8 calls each under the profiler: the weak view ('fused'),
+    the strong view with shear passes and with bilinear gathers: device ms
+    and device operations a call, and which kernels carry them. Then one
+    steady FixMatch round of 2 clients x 4 steps: unprofiled wall time,
+    device busy share and operations a step, beside the same trainer with
+    both views normalize-only (what remains is the model's step)."""
+    from fedmlp_tpu_torch.ops import augment
+    from fedmlp_tpu_torch.train import Trainer
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1037)
+    imgs = torch.randint(0, 256, (B, SIZE, SIZE, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    calls = 8
+    views = {"weak fused": augment.pick_weak_backend("fused"),
+             "strong shear": augment.pick_strong_backend("fused"),
+             "strong gather": augment.pick_strong_backend("gather")}
+    for name, view in views.items():
+        for _ in range(3):
+            view(imgs, g, mean, std)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            view(imgs, g, mean, std)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        _, by_name, counts = profiled(lambda view=view: [view(imgs, g, mean, std)
+                                                         for _ in range(calls)])
+        n = sum(counts.values())
+        busy_us = sum(by_name.values())
+        tag = f"phase profile_strong [{name}]:"
+        print(f"{tag} B={B} {SIZE}px: {busy_us / calls / 1e3:.3f} device ms a call, "
+              f"{n / calls:.0f} device ops a call, {plain_s / calls * 1e3:.3f} ms a call "
+              f"unprofiled wall [{card}]")
+        for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"{tag} kernel {us / calls / 1e3:8.3f} ms a call {us / busy_us:.3f} "
+                  f"{kname[:100]}")
+    steps = 2 * 4
+    for backend in ("auto", "normonly"):
+        cfg = strong_config("fixmatch", 2, 10**6)  # no round evaluates
+        cfg = cfg.replace(data=type(cfg.data)(**{**cfg.data.__dict__,
+                                                 "augment_backend": backend}))
+        tr = Trainer(cfg, device=dev)
+        tr.run_round(0)  # warm-up: cuDNN algorithm choice, allocator
+        torch.cuda.synchronize()
+        plain = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            tr.run_round(0)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+        wall_s, by_name, counts = profiled(lambda tr=tr: tr.run_round(0))
+        n = sum(counts.values())
+        busy_us = sum(by_name.values())
+        for kname, us in by_name.items():
+            if any(k in kname for k in ("hshift", "fused_warp", "bce_", "flip_cutout")):
+                print(f"phase profile_strong [fixmatch round, views {backend}]: kernel "
+                      f"{kname[:60]} {counts[kname]} launches, {us / counts[kname]:.2f} us "
+                      f"each, {us / 1e3 / steps:.3f} ms a step")
+        print(f"phase profile_strong [fixmatch round, views {backend}]: 2 clients x 4 "
+              f"steps: unprofiled {' '.join(f'{t:.3f}' for t in plain)} s (median "
+              f"{statistics.median(plain) / steps * 1e3:.1f} ms a step), device busy "
+              f"{busy_us / 1e3 / steps:.2f} ms a step = {busy_us / 1e6 / wall_s:.3f} of "
+              f"the profiled wall, {n / steps:.0f} device ops a step [{card}]")
+
+
 def phase_profile(dev, card: str) -> None:
     """Where a stage-1 round's time goes, with the default depthwise backend
     and with ``dw_backend='pallas'``: one steady stage-1 round of a 2-client
@@ -567,9 +965,6 @@ def phase_profile(dev, card: str) -> None:
     one round of each: the device's busy share and device time by kernel
     kind and by kernel."""
     from collections import defaultdict
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from fedmlp_tpu_torch.train import Trainer
 
@@ -587,20 +982,8 @@ def phase_profile(dev, card: str) -> None:
         torch.cuda.synchronize()
         plain_s[backend].append(time.perf_counter() - t0)
     for backend, tr in trainers.items():
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.run_round(0)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        by_name = defaultdict(float)
-        n_kernels = 0
-        for e in prof.events():
-            # a user annotation (e.g. Optimizer.step) spans kernels that are
-            # counted on their own already
-            if e.device_type == DeviceType.CUDA and not getattr(
-                    e, "is_user_annotation", False):
-                by_name[e.name] += e.time_range.elapsed_us()
-                n_kernels += 1
+        wall_s, by_name, counts = profiled(lambda tr=tr: tr.run_round(0))
+        n_kernels = sum(counts.values())
         busy_us = sum(by_name.values())
         by_kind = defaultdict(float)
         for name, us in by_name.items():
@@ -634,7 +1017,11 @@ def phase_profile(dev, card: str) -> None:
 _PATH_KERNELS = {
     "slice": ("fused_warp_normalize",),
     "slice_dw": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1"),
-    "cli": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1"),
+    "cli": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1",
+            "normalize_flip_cutout"),
+    "slice_strong": ("fused_warp_normalize", "hshift_rows",
+                     "bce_with_logits_masked_sum", "normalize_flip_cutout"),
+    "slice_cbafed": ("fused_warp_normalize", "normalize_flip_cutout"),
 }
 
 
@@ -642,8 +1029,9 @@ def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli",
-                    help="comma list of build,kernel,slice,slice_dw,cli,profile")
+    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong",
+                    help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
+                         "profile,profile_strong")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -658,7 +1046,10 @@ def main(argv=None) -> int:
     kernels = []
     if "kernel" in phases:
         kernels.append(phase_kernel_warp(dev))
+        kernels.append(phase_kernel_hshift(dev))
         kernels.extend(phase_kernel_dw(dev))
+        kernels.append(phase_kernel_preproc(dev))
+        kernels.append(phase_kernel_bce(dev))
     by_path, conv_seconds = {}, None
     if "slice" in phases:
         by_path["slice"], conv_seconds = phase_slice(dev, card)
@@ -666,6 +1057,8 @@ def main(argv=None) -> int:
         by_path["slice_dw"] = phase_slice_dw(dev, card, conv_seconds)
     if "cli" in phases:
         by_path["cli"] = phase_cli(dev, card)
+    if "slice_strong" in phases:
+        by_path.update(phase_slice_strong(dev, card))
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:
@@ -676,6 +1069,8 @@ def main(argv=None) -> int:
             k["launches"] = sum(k["launches_by_path"].values())
     if "profile" in phases:
         phase_profile(dev, card)
+    if "profile_strong" in phases:
+        phase_profile_strong(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

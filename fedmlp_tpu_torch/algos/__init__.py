@@ -1,8 +1,9 @@
-"""Federated algorithm registry (FedMLP and FedAVG so far)."""
+"""Federated algorithm registry (FedMLP, FedAVG, FixMatch and CBAFed so far)."""
 
-from fedmlp_tpu_torch.algos import fedavg, fedmlp
+from fedmlp_tpu_torch.algos import cbafed, fedavg, fedmlp, fixmatch
 
-_REGISTRY = {"fedavg": fedavg, "fedmlp": fedmlp}
+_REGISTRY = {"cbafed": cbafed, "fedavg": fedavg, "fedmlp": fedmlp,
+             "fixmatch": fixmatch}
 
 
 def registered() -> list[str]:

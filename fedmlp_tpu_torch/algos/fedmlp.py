@@ -222,7 +222,7 @@ def custom_round(trainer, rnd: int):
     stage1_rounds = cfg.fedmlp.rounds_stage1
     fd = trainer.fd
     if rnd < stage1_rounds:
-        out_state, losses = trainer.local_pass(
+        out_state, losses, _ = trainer.local_pass(
             trainer.round_fn, {"labels": fd.obs_targets}, trainer.round_scalars(rnd))
         svars = out_state["vars"]
         if rnd == stage1_rounds - 1:
@@ -242,7 +242,7 @@ def custom_round(trainer, rnd: int):
     order = torch.argsort(scores, dim=1, stable=True)  # stable, on device
     _update_tags(trainer, scores.cpu().numpy(), order.cpu().numpy())
 
-    out_state, losses = trainer.local_pass(
+    out_state, losses, _ = trainer.local_pass(
         _get_stage2_fn(trainer), _stage2_sample_arrays(trainer),
         trainer.round_scalars(rnd))
     svars = out_state["vars"]

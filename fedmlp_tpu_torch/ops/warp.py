@@ -1,6 +1,6 @@
 """Weak-view warp: random affine (Paeth three-shear form) + flip + normalize.
 
-Port of ``fedmlp_tpu/ops/pallas_warp.py``'s fused path. A rotation θ and a
+Port of ``fedmlp_tpu/ops/pallas_warp.py``. A rotation θ and a
 translation (tx, ty) about the image center factor into three axis-aligned
 shears, each a per-row fractional shift
 
@@ -10,6 +10,13 @@ applied as a two-tap lerp with zero fill (horizontal, vertical, horizontal).
 ``fused_warp_normalize`` runs all three passes and the normalization in one
 CUDA kernel (``csrc/fused_warp.cu``) on a CUDA tensor, and its plain PyTorch
 version ``fused_warp_normalize_ref`` on a CPU tensor.
+
+``hshift_rows`` is one such pass on its own (``csrc/hshift.cu``, plain version
+``hshift_rows_ref``), for arbitrary per-row shift vectors: ``paeth_affine``
+chains three of them (the weak 'pallas'/'paeth' backends,
+``weak_augment_batch_paeth``), and the strong view's geometric ops run
+through it (``ops/augment.py``). Planes are NCHW here, where the JAX package
+works on one planar [C, H, W] image under ``vmap``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 from fedmlp_tpu_torch.ops import _build
 
 # Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCH_COUNTS = {"fused_warp_normalize": 0}
+LAUNCH_COUNTS = {"fused_warp_normalize": 0, "hshift_rows": 0}
 
 
 def reset_launch_counts() -> None:
@@ -53,24 +60,39 @@ def paeth_shift_params(theta, tx, ty, H: int, W: int) -> torch.Tensor:
     ], -2)
 
 
-def _norm_constants(mean, std) -> tuple[list[float], list[float]]:
+def norm_constants(mean, std) -> tuple[list[float], list[float]]:
     """255·mean_c and 255·std_c, each rounded once to f32."""
     m = torch.tensor([float(v) * 255.0 for v in mean], dtype=torch.float32)
     s = torch.tensor([float(v) * 255.0 for v in std], dtype=torch.float32)
     return m.tolist(), s.tolist()
 
 
-def _shift_rows(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """x f32 [B, C, H, W], params [B, 3] (slope, offset, center) →
+def paeth_shift_vectors(theta, tx, ty, H: int, W: int):
+    """(θ, tx, ty) f32 [B] → shift vectors (s1 [B, H], s2 [B, W], s3 [B, H])
+    of the three passes: ``paeth_shift_params`` evaluated at every row."""
+    p = paeth_shift_params(theta, tx, ty, H, W)
+    ys = torch.arange(H, dtype=torch.float32, device=p.device)
+    xs = torch.arange(W, dtype=torch.float32, device=p.device)
+
+    def line(q, at):
+        return q[..., 0:1] * (at - q[..., 2:3]) + q[..., 1:2]
+
+    return line(p[..., 0, :], ys), line(p[..., 1, :], xs), line(p[..., 2, :], ys)
+
+
+def hshift_rows_ref(x: torch.Tensor, shifts: torch.Tensor, axis: int = 3):
+    """Plain PyTorch version of ``hshift_rows``, same arguments. For axis 3:
     out[b, c, y, x] = (1 − w)·x[b, c, y, x + k] + w·x[b, c, y, x + k + 1],
-    s = slope·(y − center) + offset, k = ⌊s⌋, w = s − k, zero outside."""
+    s = shifts[b, y], k = ⌊s⌋, w = s − k, zero outside; an integer shift is
+    an exact copy, a shift beyond the plane gives zeros."""
+    if axis == 2:
+        return hshift_rows_ref(x.transpose(2, 3), shifts, 3).transpose(2, 3)
     B, C, H, W = x.shape
-    ys = torch.arange(H, dtype=torch.float32, device=x.device)
-    s = params[:, 0:1] * (ys[None, :] - params[:, 2:3]) + params[:, 1:2]
-    k = torch.floor(s)
-    w = (s - k)[:, None, :, None]
+    kf = torch.floor(shifts)
+    w = (shifts - kf)[:, None, :, None]
+    k = kf.clamp(-(W + 1), W + 1).long()
     xs = torch.arange(W, device=x.device)
-    lo_idx = k.long()[:, :, None] + xs[None, None, :]  # [B, H, W]
+    lo_idx = k[:, :, None] + xs[None, None, :]  # [B, H, W]
 
     def tap(idx):
         inside = (idx >= 0) & (idx < W)
@@ -79,6 +101,81 @@ def _shift_rows(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
                                                           device=x.device))
 
     return (1.0 - w) * tap(lo_idx) + w * tap(lo_idx + 1)
+
+
+def _check_hshift(x, shifts, axis):
+    if axis not in (2, 3):
+        raise ValueError(f"hshift_rows: axis must be 2 or 3, got {axis}")
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(f"hshift_rows: x must be f32 [B, C, H, W], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    want = (x.shape[0], x.shape[2] if axis == 3 else x.shape[3])
+    if shifts.dtype != torch.float32 or tuple(shifts.shape) != want:
+        raise ValueError(f"hshift_rows: shifts must be f32 {list(want)} for axis "
+                         f"{axis}, got {shifts.dtype} {tuple(shifts.shape)}")
+    if shifts.device != x.device:
+        raise ValueError(f"hshift_rows: inputs on different devices: {x.device}, "
+                         f"{shifts.device}")
+
+
+def hshift_rows(x: torch.Tensor, shifts: torch.Tensor, axis: int = 3):
+    """One shear pass: x f32 [B, C, H, W] shifted along ``axis`` by a
+    fractional amount per line, two-tap lerp, zero fill. ``axis=3`` shifts
+    row y of image b by ``shifts[b, y]`` (shifts [B, H]); ``axis=2`` shifts
+    column x by ``shifts[b, x]`` (shifts [B, W]), the vertical pass that the
+    JAX package runs on a transposed copy. A positive shift samples the
+    source at x + s. A CPU tensor takes the plain version; a CUDA tensor
+    launches ``csrc/hshift.cu`` (or raises)."""
+    _check_hshift(x, shifts, axis)
+    if x.device.type == "cpu":
+        return hshift_rows_ref(x, shifts, axis)
+    if x.device.type != "cuda":
+        raise ValueError(f"hshift_rows: unsupported device {x.device}")
+    for name, t in (("x", x), ("shifts", shifts)):
+        if not t.is_contiguous():
+            raise ValueError(f"hshift_rows: {name} must be contiguous")
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _hshift_lib()
+    B, C, H, W = x.shape
+    with torch.cuda.device(x.device):  # the launch goes to the current device
+        err = lib.hshift_rows_f32(x.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+                                  B, C, H, W, 1 if axis == 3 else 0,
+                                  torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hshift_rows launch failed: CUDA error {err}")
+    LAUNCH_COUNTS["hshift_rows"] += 1
+    return out
+
+
+def _hshift_lib():
+    lib = _build.load("hshift")
+    if not hasattr(lib, "_typed"):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.hshift_rows_f32.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.hshift_rows_f32.restype = ci
+        lib._typed = True
+    return lib
+
+
+def paeth_affine(x: torch.Tensor, theta, tx, ty) -> torch.Tensor:
+    """Warp planar images [B, C, H, W] f32 by the inverse affine map
+    (rotation θ [B] about the center + translation) as three shear passes
+    of ``hshift_rows``: horizontal, vertical, horizontal."""
+    H, W = x.shape[2], x.shape[3]
+    s1, s2, s3 = paeth_shift_vectors(theta, tx, ty, H, W)
+    x = hshift_rows(x, s1.contiguous(), 3)
+    x = hshift_rows(x, s2.contiguous(), 2)
+    return hshift_rows(x, s3.contiguous(), 3)
+
+
+def _shift_rows(x: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """``hshift_rows_ref`` with the shifts in closed form: params [B, 3]
+    (slope, offset, center), s(y) = slope·(y − center) + offset."""
+    ys = torch.arange(x.shape[2], dtype=torch.float32, device=x.device)
+    s = params[:, 0:1] * (ys[None, :] - params[:, 2:3]) + params[:, 1:2]
+    return hshift_rows_ref(x, s)
 
 
 def fused_warp_normalize_ref(images_u8, params, flip, mean, std):
@@ -92,10 +189,7 @@ def fused_warp_normalize_ref(images_u8, params, flip, mean, std):
     x = _shift_rows(x, params[:, 0])
     x = _shift_rows(x.transpose(2, 3), params[:, 1]).transpose(2, 3)
     x = _shift_rows(x, params[:, 2])
-    m, s = _norm_constants(mean, std)
-    m = torch.tensor(m, dtype=torch.float32, device=x.device)[None, :, None, None]
-    s = torch.tensor(s, dtype=torch.float32, device=x.device)[None, :, None, None]
-    return (x - m) / s
+    return normalize_planar(x, mean, std)
 
 
 def _check(images_u8, params, flip):
@@ -137,7 +231,7 @@ def fused_warp_normalize(images_u8, params, flip, mean, std):
     if B == 0:
         return out
     flip_u8 = flip.view(torch.uint8) if flip.dtype == torch.bool else flip
-    m, s = _norm_constants(mean, std)
+    m, s = norm_constants(mean, std)
     with torch.cuda.device(images_u8.device):  # the launch goes to the current device
         err = lib.fused_warp_normalize_u8(
             images_u8.data_ptr(), params.data_ptr(), flip_u8.data_ptr(),
@@ -188,3 +282,38 @@ def weak_augment_batch_fused(images_u8, generator: torch.Generator, mean, std,
     return fused_warp_normalize(images_u8.contiguous(), params,
                                 flip.contiguous(), mean, std)
 
+
+
+def planar_f32(images_u8: torch.Tensor) -> torch.Tensor:
+    """u8 NHWC → contiguous f32 NCHW in 0..255."""
+    return images_u8.permute(0, 3, 1, 2).to(torch.float32).contiguous()
+
+
+def normalize_planar(x: torch.Tensor, mean, std) -> torch.Tensor:
+    """ToTensor + Normalize of f32 NCHW in 0..255: (x − 255·mean)/(255·std)."""
+    m, s = norm_constants(mean, std)
+    m = torch.tensor(m, dtype=torch.float32, device=x.device)[None, :, None, None]
+    s = torch.tensor(s, dtype=torch.float32, device=x.device)[None, :, None, None]
+    return (x - m) / s
+
+
+def weak_augment_batch_paeth_from_params(images_u8, ang, tx, ty, flip, mean, std):
+    """``weak_augment_batch_paeth`` on given draws (θ in degrees, tx, ty,
+    flip, each [B]): three ``hshift_rows`` passes over the f32 planes, then
+    the flip, then the normalization."""
+    warped = paeth_affine(planar_f32(images_u8), torch.deg2rad(ang), tx, ty)
+    warped = torch.where(flip[:, None, None, None], warped.flip(-1), warped)
+    return normalize_planar(warped, mean, std)
+
+
+def weak_augment_batch_paeth(images_u8, generator: torch.Generator, mean, std,
+                             degrees: float = 10.0, translate: float = 0.02):
+    """The weak 'pallas' and 'paeth' backends: the weak view of
+    ``weak_augment_batch_fused`` as three separate shear passes (the JAX
+    package's v1 pipeline). Both names launch ``hshift_rows`` on a CUDA
+    batch and take its plain version on a CPU batch."""
+    B, H, W, _ = images_u8.shape
+    ang, tx, ty, flip = weak_params(B, H, W, generator, images_u8.device,
+                                    degrees, translate)
+    return weak_augment_batch_paeth_from_params(images_u8, ang, tx, ty, flip,
+                                                mean, std)

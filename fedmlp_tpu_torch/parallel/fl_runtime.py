@@ -161,32 +161,38 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     """A function running one local round for every client in turn.
 
     ``loss_fn(model, views, sample, svalid, ctx, generator, scalars) ->
-    loss`` computes ONE client's step loss with ``model`` in train mode
-    (which updates its batch-norm running statistics).
+    loss`` or ``(loss, aux)`` computes ONE client's step loss with ``model``
+    in train mode (which updates its batch-norm running statistics).
 
-    * ``views`` — 'x' (single) or 'x1'/'x2' (dual) f32 NCHW views, plus the
-      frozen global model's eval-mode logits 'g_logits' or
-      'g_logits1'/'g_logits2' when ``needs_global``.
+    * ``views`` — 'x' (single) or 'x1'/'x2' f32 NCHW views ('dual': two weak
+      views; 'weak_strong': a weak and a strong one), plus the frozen global
+      model's eval-mode logits 'g_logits' or 'g_logits1'/'g_logits2' when
+      ``needs_global``.
     * ``sample`` — per-sample rows of the plan's [K, M, ...] tables.
     * ``ctx`` — the client's rows of the per-client context.
+    * ``aux`` — a dict of per-step tensors (CBAFed's counters), summed over
+      the client's steps; a skipped padding step adds nothing.
 
     ``round_fn(global_vars, data, plan, scalars, generator)`` takes
       data = {'images' u8 [N,H,W,3], 'idx' [K,M], 'ctx' {name: [K, ...]}}
       plan = {'pos' [S,K,B], 'pos_valid' [S,K,B] (numpy), 'sample'
               {name: [K, M, ...]}}
-    and returns ({'vars': client-stacked variables}, mean_losses [K]).
+    and returns ({'vars': client-stacked variables}, mean_losses [K],
+    aux sums {name: [K, ...]}).
     ``global_model`` is a second module of the same architecture for the
     frozen-global forwards (built when ``needs_global``).
     """
+    if view_mode not in ("single", "dual", "weak_strong"):
+        raise ValueError(f"unknown view_mode {view_mode!r}")
     weak = A.pick_weak_backend(augment_backend)
+    second = (A.pick_strong_backend(augment_backend) if view_mode == "weak_strong"
+              else weak)
 
     def augment_views(imgs_u8, generator):
         if view_mode == "single":
             return {"x": weak(imgs_u8, generator, mean, std)}
-        if view_mode != "dual":
-            raise ValueError(f"view_mode {view_mode!r} is not ported")
         return {"x1": weak(imgs_u8, generator, mean, std),
-                "x2": weak(imgs_u8, generator, mean, std)}
+                "x2": second(imgs_u8, generator, mean, std)}
 
     def round_fn(global_vars, data, plan, scalars, generator):
         pos, pos_valid = plan["pos"], plan["pos_valid"]
@@ -201,6 +207,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         stacked = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=device)
                    for n, v in global_vars.items()}
         mean_losses = torch.zeros((K,), dtype=torch.float32, device=device)
+        aux_sums = [{} for _ in range(K)]
         for k in range(K):
             model.load_state_dict(global_vars)
             model.train()
@@ -221,19 +228,31 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                             for v in [v for v in views if v.startswith("x")]:
                                 _, g = global_model(views[v])
                                 views["g_logits" + v[1:]] = g
-                    loss = loss_fn(model, views, sample, valid_d[s, k], ctx,
-                                   generator, scalars)
+                    out = loss_fn(model, views, sample, valid_d[s, k], ctx,
+                                  generator, scalars)
+                loss, aux = out if isinstance(out, tuple) else (out, {})
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
                 opt.step()
                 loss_sum += loss.detach().float()
                 cnt += 1
+                for n, a in aux.items():
+                    a = a.detach().float()
+                    aux_sums[k][n] = aux_sums[k][n] + a if n in aux_sums[k] else a
             mean_losses[k] = loss_sum / max(cnt, 1)
             for n, v in model.state_dict().items():
                 stacked[n][k].copy_(v)
-        return {"vars": stacked}, mean_losses
+        return {"vars": stacked}, mean_losses, _stack_aux(aux_sums)
 
     return round_fn
+
+
+def _stack_aux(aux_sums: list) -> dict:
+    """Per-client aux sums → {name: [K, ...]}; a client that ran no step
+    contributes zeros."""
+    template = next((a for a in aux_sums if a), {})
+    return {n: torch.stack([a.get(n, torch.zeros_like(t)) for a in aux_sums])
+            for n, t in template.items()}
 
 
 # ----------------------------------------------------------------------

@@ -34,6 +34,7 @@ from fedmlp_tpu_torch.fl import fedavg as agg_fedavg
 from fedmlp_tpu_torch.models import build_model, init_model
 from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
 from fedmlp_tpu_torch.models.factory import is_ported as model_is_ported
+from fedmlp_tpu_torch.ops.augment import AUGMENT_BACKENDS
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
 
 log = logging.getLogger("fedmlp_tpu_torch")
@@ -88,9 +89,9 @@ def check_ported(cfg: Config) -> None:
          "data is device-resident")
     need(not cfg.data.stream_window, "data.stream_window", cfg.data.stream_window,
          "data is device-resident")
-    need(cfg.data.augment_backend in ("auto", "fused", "normonly"),
+    need(cfg.data.augment_backend in AUGMENT_BACKENDS,
          "data.augment_backend", cfg.data.augment_backend,
-         "have auto, fused and normonly")
+         f"have {AUGMENT_BACKENDS}")
     need(not cfg.fedmlp.mixup, "fedmlp.mixup", cfg.fedmlp.mixup,
          "the stage-2 mixup ablation is not ported")
     need(cfg.mesh.data_axis == 1 and cfg.mesh.client_axis in (-1, 1),
@@ -225,7 +226,7 @@ class Trainer:
 
     def local_pass(self, round_fn, sample_arrays: dict, scalars: dict):
         """One local-training pass for all clients with fresh batch plans;
-        returns (state, mean_losses [K])."""
+        returns (state, mean_losses [K], aux sums {name: [K, ...]})."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
@@ -256,7 +257,7 @@ class Trainer:
         if hasattr(self.algo, "custom_round"):
             losses = self.algo.custom_round(self, rnd)
         else:
-            state, losses = self.local_pass(
+            state, losses, _ = self.local_pass(
                 self.round_fn, {"labels": self.fd.obs_targets},
                 self.round_scalars(rnd))
             # server aggregation (an algorithm may override it)

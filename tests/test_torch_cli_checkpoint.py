@@ -16,6 +16,7 @@ from fedmlp_tpu_torch import cli as TCli
 from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
 from fedmlp_tpu_torch.train import Trainer, UnportedConfigError
 from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _jax_parser_actions():
@@ -95,8 +96,9 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
     (["--exp", "FedAVG", "--model", "Resnet18"], "model='Resnet18' is not ported"),
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x"], "--data_root needs load_packed"),
-    (["--exp", "FedAVG", "--augment_backend", "gather"],
-     "data.augment_backend='gather' is not ported"),
+    (["--exp", "FedAVG+FixMatch", "--hoist_augment", "1"],
+     "hoist_augment=1 is not ported"),
+    (["--exp", "CBAFed", "--pre_augment", "64"], "pre_augment=64 is not ported"),
 ])
 def test_cli_exits_with_a_message_for_what_is_not_ported(tmp_path, extra, message):
     argv = _SMALL + ["--output_dir", str(tmp_path)] + extra

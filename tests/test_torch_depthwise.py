@@ -23,6 +23,7 @@ from fedmlp_tpu_torch.models.layers import same_pads
 from fedmlp_tpu_torch.ops import dw_pallas as T
 from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _nchw(a):

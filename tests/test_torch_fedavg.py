@@ -22,6 +22,7 @@ from fedmlp_tpu_torch.eval import evaluate as TEval
 from fedmlp_tpu_torch.ops import losses as TL
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def test_bce_with_logits_value_and_gradient_match_jax():

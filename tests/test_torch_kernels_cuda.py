@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fedmlp_tpu_torch.ops import dw_pallas as D
+from fedmlp_tpu_torch.ops import pallas_ops as P
 from fedmlp_tpu_torch.ops import warp as W
 
 MEAN = (0.485, 0.456, 0.406)
@@ -165,3 +166,123 @@ def test_dw_kernels_reject_what_they_do_not_take(card):
         D.dw_conv_s1(x, w7, ((3, 3), (3, 3)))
     with pytest.raises(ValueError, match="match x's type and device"):
         D.dw_conv_s1(x, w.cpu(), ((1, 1), (1, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [3, 2])
+@pytest.mark.parametrize("B,C,H,Wd", [(4, 3, 224, 224), (1, 1, 37, 53), (3, 3, 50, 19),
+                                     (2, 3, 7, 300)])
+def test_hshift_kernel_matches_plain_version(card, B, C, H, Wd, axis):
+    """``hshift_rows`` at ragged shapes (H, W not multiples of 32, W above
+    the block's 256 threads, B = 1, C = 1), on both axes: fractional shifts
+    up to the plane's size, an integer shift (exact copy), a shift beyond the
+    plane (zeros). atol 1e-4 on the 0..255 scale; in practice bitwise, since
+    the kernel rounds every product and sum in the plain version's order."""
+    g = torch.Generator(device=card).manual_seed(H * Wd)
+    x = torch.rand((B, C, H, Wd), generator=g, device=card) * 255.0
+    n = H if axis == 3 else Wd
+    length = Wd if axis == 3 else H
+    shifts = (torch.rand((B, n), generator=g, device=card) * 2.0 - 1.0) * length
+    shifts[0, 0] = 3.0
+    shifts[0, 1] = float(length + 5)
+    shifts[0, 2] = -1e9
+    W.reset_launch_counts()
+    got = W.hshift_rows(x, shifts, axis=axis)
+    want = W.hshift_rows_ref(x, shifts, axis=axis)
+    torch.cuda.synchronize()
+    assert W.LAUNCH_COUNTS["hshift_rows"] == 1
+    assert got.shape == x.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-4
+    line = (lambda t, i: t[0, :, i, :]) if axis == 3 else (lambda t, i: t[0, :, :, i])
+    assert torch.equal(line(got, 0)[..., :length - 3], line(x, 0)[..., 3:])
+    assert not line(got, 1).any() and not line(got, 2).any()
+
+
+@pytest.mark.cuda
+def test_paeth_affine_on_the_card_is_three_launches_and_matches_the_cpu(card):
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.rand((5, 3, 61, 45), generator=g, device=card) * 255.0
+    ang, tx, ty, _ = W.weak_params(5, 61, 45, g, card)
+    W.reset_launch_counts()
+    got = W.paeth_affine(x, torch.deg2rad(ang), tx, ty)
+    assert W.LAUNCH_COUNTS["hshift_rows"] == 3
+    want = W.paeth_affine(x.cpu(), torch.deg2rad(ang).cpu(), tx.cpu(), ty.cpu())
+    # 2e-3 on the 0..255 scale: the card's and the CPU's sin and tan
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Wd", [(8, 224, 224), (1, 33, 47), (3, 5, 300)])
+def test_normalize_flip_cutout_kernel_matches_plain_version(card, B, H, Wd):
+    """Mixed flips, a box inside, a zero box, a box cut by the border, and
+    None for either operand. atol 1e-6 on the normalized scale (one
+    subtraction and one division, both correctly rounded); in practice
+    bitwise."""
+    g = torch.Generator(device=card).manual_seed(B + H)
+    imgs = torch.randint(0, 256, (B, H, Wd, 3), generator=g, device=card, dtype=torch.uint8)
+    flips = (torch.arange(B, device=card) % 2).to(torch.int32)
+    boxes = torch.zeros((B, 4), dtype=torch.int32, device=card)
+    boxes[0] = torch.tensor([1, 2, min(17, Wd), min(18, H)])
+    if B > 2:
+        boxes[2] = torch.tensor([Wd - 3, H - 2, Wd + 13, H + 14])
+    P.reset_launch_counts()
+    for f, b in ((flips, boxes), (None, boxes), (flips, None), (None, None)):
+        got = P.normalize_flip_cutout(imgs, f, b, MEAN, STD)
+        want = P.normalize_flip_cutout_ref(imgs, f, b, MEAN, STD)
+        torch.cuda.synchronize()
+        assert got.shape == (B, H, Wd, 3) and got.dtype == torch.float32
+        assert float((got - want).abs().max()) <= 1e-6
+    assert P.LAUNCH_COUNTS["normalize_flip_cutout"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C", [(32, 8), (1, 1), (7, 5), (65536, 8), (100003, 3)])
+def test_bce_masked_sum_kernel_matches_plain_version(card, B, C):
+    """Forward within 1e-5 relative of the plain version (f32 sums in
+    another order), finite with logits at ±30, equal bits on a repeat (one
+    block or many: partial sums are added in index order); the gradient is
+    the closed form. pos_weight [C], mask [B, 1] read in place by stride."""
+    g = torch.Generator(device=card).manual_seed(B)
+    x = (torch.randn((B, C), generator=g, device=card) * 4.0)
+    x[0, 0] = 30.0
+    x[-1, -1] = -30.0
+    x.requires_grad_(True)
+    y = (torch.rand((B, C), generator=g, device=card) < 0.4).float()
+    pw = torch.rand((C,), generator=g, device=card) * 3.5 + 0.5
+    for mask in ((torch.rand((B, C), generator=g, device=card) < 0.7).float(),
+                 (torch.rand((B, 1), generator=g, device=card) < 0.7).float()):
+        P.reset_launch_counts()
+        got = P.bce_with_logits_masked_sum(x, y, pw, mask)
+        again = P.bce_with_logits_masked_sum(x, y, pw, mask)
+        want = P.bce_with_logits_masked_sum_ref(x.detach().double(), y.double(),
+                                                pw.double(), mask.double())
+        torch.cuda.synchronize()
+        assert P.LAUNCH_COUNTS["bce_with_logits_masked_sum"] == 2
+        assert torch.isfinite(got) and torch.equal(got.detach(), again.detach())
+        assert abs(float(got.detach()) - float(want)) <= 1e-5 * abs(float(want)) + 1e-6
+        x.grad = None
+        got.backward()
+        x2 = x.detach().clone().requires_grad_(True)
+        P.bce_with_logits_masked_sum_ref(x2, y, pw, mask).backward()
+        assert float((x.grad - x2.grad).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_do_not_take(card):
+    """A CUDA tensor gets the kernel or an exception, never the plain
+    version."""
+    x = torch.zeros((2, 3, 8, 8), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        W.hshift_rows(x.transpose(2, 3), torch.zeros((2, 8), device=card))
+    with pytest.raises(ValueError, match="different devices"):
+        W.hshift_rows(x, torch.zeros((2, 8)))
+    imgs = torch.zeros((2, 8, 8, 3), dtype=torch.uint8, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.normalize_flip_cutout(imgs.transpose(1, 2), None, None, MEAN, STD)
+    with pytest.raises(ValueError, match="flips on"):
+        P.normalize_flip_cutout(imgs, torch.zeros(2, dtype=torch.int32), None, MEAN, STD)
+    z = torch.zeros((4, 6), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.bce_with_logits_masked_sum(z.t().contiguous().t(), z, torch.ones(6, device=card), z)
+    with pytest.raises(ValueError, match="f32 on"):
+        P.bce_with_logits_masked_sum(z, z, torch.ones(6), z)

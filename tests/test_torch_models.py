@@ -17,6 +17,7 @@ from fedmlp_tpu.models import smallcnn as JS
 from fedmlp_tpu_torch.models import build_model, efficientnet as TE, init_model
 from fedmlp_tpu_torch.models import smallcnn as TS
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ATOL = 1e-4
 # narrow, shallow EfficientNet from the same parameters: three block stages
