@@ -13,7 +13,8 @@ first failure:
    shapes the main path gives it (the warp, the shear pass and the
    normalize/flip/cutout pass at B=32, 224 px; the two depthwise kernels at
    the 16 depthwise layers of EfficientNet-B0; the masked BCE sum at
-   [32, 8]), with its median time (CUDA events), the plain version's time,
+   [32, 8]; the fused 1x1-conv + batch-norm kernels at the probe's shapes),
+   with its median time (CUDA events), the plain version's time,
    its bound and, where one PyTorch call computes the same function, that
    call's time.
 3. slice:  the port's FedMLP ``Trainer`` at the flagship geometry
@@ -36,7 +37,18 @@ first failure:
    ``normalize_flip_cutout``. Then CBAFed, 4 clients, warm-up 1, two rounds:
    the second runs the pseudo-label loss with the threshold vector that the
    first set.
-7. profile, profile_strong (only when asked for): where a stage-1 round's
+7. probe_convbn: the port of tools/probe_fused_conv_bn.py
+   (``fedmlp_tpu_torch.tools.probe_fused_conv_bn.main``) at EfficientNet-B0's
+   three pointwise shapes in bf16: the unfused matmul chain against
+   ``conv1x1_bn_stats`` and ``conv1x1_bn_act_2pass``, interleaved rep by rep.
+   The kernel phase holds both kernels against their plain versions at the
+   same shapes and at one f32 shape.
+8. slice_fednoro: FedNoRo at the ladder's rung-5 geometry (EfficientNet-B0,
+   224 px, batch 32, 20 clients, 8 classes, p_pos=0, bf16), warm-up 1, three
+   rounds: a FedAvg warm-up, a round that splits the clients with the GMM on
+   round 0's losses and aggregates with DaAgg, and a round that trains the
+   clean and the noisy clients apart. Only the depth (rounds) is cut.
+9. profile, profile_strong (only when asked for): where a stage-1 round's
    device time goes, for both depthwise backends; what the strong view costs
    a FixMatch step.
 
@@ -56,10 +68,12 @@ import time
 
 import torch
 
-# H100 SXM: HBM rate (NVIDIA data sheet), and the f32 rate outside the
-# tensor cores for the warp's elementwise arithmetic.
+# H100 SXM: HBM rate (NVIDIA data sheet), the f32 rate outside the tensor
+# cores for elementwise arithmetic, and the dense bf16 tensor-core rate for
+# products of bf16 operands.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 # flagship geometry (bench.py::_bench_fedmlp)
 K, B, SIZE, N, N_CLASSES = 20, 32, 224, 2560, 8
@@ -378,6 +392,158 @@ def phase_kernel_bce(dev) -> dict:
     return row
 
 
+def _ulp(v, dtype):
+    """One ulp of ``dtype`` at |v| (an f32 tensor)."""
+    bits = 7 if dtype == torch.bfloat16 else 23
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=1e-30))) - bits)
+
+
+def _conv_bn_case(dev, M, Ci, Co, dtype, act: str = "swish") -> dict:
+    """Both conv-BN kernels against their plain versions on one shape, each
+    called twice; the tolerances are stated in ``phase_kernel_conv_bn``.
+    Returns the errors and whether the checks held."""
+    from fedmlp_tpu_torch.ops import fused_conv_bn as CB
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(M + Ci)
+    x = torch.randn((M, Ci), generator=g, device=dev).to(dtype)
+    w = torch.randn((Ci, Co), generator=g, device=dev).to(dtype)
+    scale = torch.rand((Co,), generator=g, device=dev) + 0.5
+    bias = torch.randn((Co,), generator=g, device=dev)
+    y, s, ss = CB.conv1x1_bn_stats(x, w)
+    y2, s2, ss2 = CB.conv1x1_bn_stats(x, w)
+    out, mean, var = CB.conv1x1_bn_act_2pass(x, w, scale, bias, act=act)
+    out2, mean2, var2 = CB.conv1x1_bn_act_2pass(x, w, scale, bias, act=act)
+    yr, sr, ssr = CB.conv1x1_bn_stats_ref(x, w)
+    outr, meanr, varr = CB.conv1x1_bn_act_2pass_ref(x, w, scale, bias, act=act)
+    torch.cuda.synchronize()
+    yf = CB._product_ref(x, w)
+    abs_sum, sq_sum = float(yf.abs().sum()), float((yf * yf).sum())
+    y_err = (y.float() - yr.float()).abs()
+    y_ulps = y_err / _ulp(yr.float(), dtype)
+    _, _, mul, add = CB.fold_batch_norm(s, ss, M, scale, bias, 1e-3)
+    _, _, mulr, addr = CB.fold_batch_norm(sr, ssr, M, scale, bias, 1e-3)
+    # z = y·mul + add differs by what the two sets of statistics make of it
+    # and by one f32 rounding of the product y·mul and one of the sum on each
+    # side (the product's may be far above z's where the sum cancels); out
+    # moves by at most the activation's slope (swish: under 1.1) times that
+    ym = yf * mulr
+    dz = (yf.abs() * (mul - mulr).abs() + (add - addr).abs()
+          + _ulp(ym, torch.float32) + _ulp(ym + addr, torch.float32))
+    spread = (1.1 if act == "swish" else 1.0) * dz
+    out_err = (out.float() - outr.float()).abs()
+    # in ulps of the larger of the two values (the plain version's may be 0)
+    out_ulps = ((out_err - spread).clamp(min=0.0)
+                / _ulp(torch.maximum(out.float().abs(), outr.float().abs()), dtype))
+    n_ulp = 1 if dtype == torch.bfloat16 else 4
+    stats_rel = max(float((s - sr).abs().max()) / abs_sum,
+                    float((ss - ssr).abs().max()) / sq_sum,
+                    float((mean - meanr).abs().max()) * M / abs_sum,
+                    float((var - varr).abs().max()) * M / (2.0 * sq_sum))
+    repeat = all(torch.equal(a, b) for a, b in ((y, y2), (s, s2), (ss, ss2), (out, out2),
+                                                 (mean, mean2), (var, var2)))
+    res = {
+        "y_err": float(y_err.max()), "out_err": float(out_err.max()),
+        "y_ulps": float(y_ulps.max()), "out_ulps": float(out_ulps.max()),
+        "y_share": float((y_ulps > 0).float().mean()),
+        "out_share": float((out_ulps > 0).float().mean()),
+        "stats_rel": stats_rel, "repeat": repeat,
+        "finite": bool(torch.isfinite(out.float()).all() and torch.isfinite(y.float()).all()),
+    }
+    res["ok"] = (res["finite"] and repeat and res["y_ulps"] <= 1.0 and res["out_ulps"] <= n_ulp
+                 and res["y_share"] <= 0.01 and res["out_share"] <= 0.01 and stats_rel <= 1e-5
+                 and y.dtype == out.dtype == dtype)
+    return res
+
+
+def phase_kernel_conv_bn(dev) -> list:
+    """``conv1x1_bn_stats`` and ``conv1x1_bn_act_2pass`` against their plain
+    versions at the probe's three shapes (EfficientNet-B0's pointwise
+    expansions at B=32, 224 px) in bf16 and at the third in f32. Tolerances:
+    y within one ulp of its type (the kernel sums each element's products in
+    the plain version's order, so it should be equal), at most 1% of the
+    elements one ulp off; sum and sum of squares within 1e-5 relative to
+    Σ|y| and Σy², mean and var the same over M; out within one bf16 ulp
+    (four f32 ulps: the sigmoid's exp and the last rounding) of the larger
+    of the two values, beyond 1.1 (the swish's largest slope) times |y|·Δmul
+    + Δadd + one f32 ulp of y·mul and one of z, what the two sets of
+    statistics and their roundings make of z = y·mul + add, at most 1% of
+    the elements off; equal bits on a repeat. Times are sums over the three bf16 shapes,
+    every run from a flushed L2; the library column is the unfused chain of
+    the probe (``torch.matmul``, then the statistics, or the statistics,
+    batch norm and swish)."""
+    from fedmlp_tpu_torch.ops import fused_conv_bn as CB
+    from fedmlp_tpu_torch.tools.probe_fused_conv_bn import SHAPES, candidates
+
+    cases = [(M, Ci, Co, torch.bfloat16) for M, Ci, Co in SHAPES]
+    cases.append(SHAPES[2] + (torch.float32,))
+    stats = {n: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                 "bytes_ms": 0.0, "flops_ms": 0.0}
+             for n in ("conv1x1_bn_stats", "conv1x1_bn_act_2pass")}
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    for M, Ci, Co, dtype in cases:
+        res = _conv_bn_case(dev, M, Ci, Co, dtype)
+        tname = "bf16" if dtype == torch.bfloat16 else "f32"
+        print(f"phase kernel: conv1x1_bn [{M}, {Ci}]x[{Ci}, {Co}] {tname} y max_abs_err="
+              f"{res['y_err']:.3e} ({res['y_ulps']:.0f} ulp, share {res['y_share']:.2e}) "
+              f"out max_abs_err={res['out_err']:.3e} ({res['out_ulps']:.2f} ulp beyond the "
+              f"statistics' spread, share {res['out_share']:.2e}) stats_rel="
+              f"{res['stats_rel']:.2e} (tol 1e-05) repeat_equal={res['repeat']}")
+        if not res["ok"]:
+            raise SystemExit(f"conv1x1_bn kernels disagree at {(M, Ci, Co, tname)}: {res}")
+        stats["conv1x1_bn_stats"]["err"] = max(stats["conv1x1_bn_stats"]["err"], res["y_err"])
+        stats["conv1x1_bn_act_2pass"]["err"] = max(stats["conv1x1_bn_act_2pass"]["err"],
+                                                   res["out_err"])
+        if dtype != torch.bfloat16:
+            continue
+        g = torch.Generator(device=dev)
+        g.manual_seed(M)
+        x = torch.randn((M, Ci), generator=g, device=dev).to(dtype)
+        w = torch.randn((Ci, Co), generator=g, device=dev).to(dtype)
+        scale = torch.rand((Co,), generator=g, device=dev) + 0.5
+        bias = torch.randn((Co,), generator=g, device=dev)
+        unfused, fused, unfusedfull, fused2p = candidates(x, w, scale, bias)
+        e = x.element_size()
+        # x and w read once, y (or out) written once, the [Co] vectors; the
+        # product's 2*M*Ci*Co operations at the bf16 tensor-core rate
+        n_bytes = (M * Ci + Ci * Co + M * Co) * e + 4 * Co * 4
+        flops_ms = 2.0 * M * Ci * Co / BF16_FLOP_PER_S * 1e3
+        for kname, fn, plain, library in (
+                ("conv1x1_bn_stats", fused, lambda: CB.conv1x1_bn_stats_ref(x, w), unfused),
+                ("conv1x1_bn_act_2pass", fused2p,
+                 lambda: CB.conv1x1_bn_act_2pass_ref(x, w, scale, bias), unfusedfull)):
+            st = stats[kname]
+            ms = cuda_ms(fn, 20, 3, flush)
+            plain_ms = cuda_ms(plain, 3, 1, flush)
+            library_ms = cuda_ms(library, 20, 3, flush)
+            bound_ms = max(n_bytes / HBM_BYTES_PER_S * 1e3, flops_ms)
+            print(f"phase kernel: {kname} [{M}, {Ci}]x[{Ci}, {Co}] bf16 ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bound_ms={bound_ms:.5f} ({n_bytes / 1e6:.2f} MB) share={bound_ms / ms:.3f}")
+            st["ms"] += ms
+            st["plain_ms"] += plain_ms
+            st["library_ms"] += library_ms
+            st["bytes_ms"] += n_bytes / HBM_BYTES_PER_S * 1e3
+            st["flops_ms"] += flops_ms
+    out = []
+    for kname, line in (("conv1x1_bn_stats", 125), ("conv1x1_bn_act_2pass", 66)):
+        st = stats[kname]
+        bound_ms = max(st["bytes_ms"], st["flops_ms"])
+        print(f"phase kernel: {kname} 3 probe shapes bf16: ms={st['ms']:.4f} "
+              f"plain_ms={st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+              f"bound_ms={bound_ms:.4f} share={bound_ms / st['ms']:.3f} "
+              f"(library: the unfused torch.matmul chain)")
+        out.append({
+            "name": kname, "route": "cuda", "source": "fedmlp_tpu_torch/csrc/conv_bn.cu",
+            "replaces": f"tools/fused_conv_bn.py:{line}", "launches": None,
+            "max_abs_err": st["err"], "ms": st["ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": "bytes" if st["bytes_ms"] >= st["flops_ms"] else "operations",
+            "library_ms": st["library_ms"],
+        })
+    return out
+
+
 def dw_layer_calls(dev) -> list:
     """(name, C, H, W, k, stride, pads) of every depthwise layer, as one
     B=32, 224 px forward of ``efficientnet_b0(dw_backend='pallas')`` calls
@@ -557,16 +723,17 @@ def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
 
 
 def reset_launch_counts() -> None:
-    from fedmlp_tpu_torch.ops import dw_pallas, pallas_ops, warp
+    from fedmlp_tpu_torch.ops import dw_pallas, fused_conv_bn, pallas_ops, warp
 
-    for mod in (warp, dw_pallas, pallas_ops):
+    for mod in (warp, dw_pallas, pallas_ops, fused_conv_bn):
         mod.reset_launch_counts()
 
 
 def read_launch_counts() -> dict:
-    from fedmlp_tpu_torch.ops import dw_pallas, pallas_ops, warp
+    from fedmlp_tpu_torch.ops import dw_pallas, fused_conv_bn, pallas_ops, warp
 
-    return {**warp.LAUNCH_COUNTS, **dw_pallas.LAUNCH_COUNTS, **pallas_ops.LAUNCH_COUNTS}
+    return {**warp.LAUNCH_COUNTS, **dw_pallas.LAUNCH_COUNTS, **pallas_ops.LAUNCH_COUNTS,
+            **fused_conv_bn.LAUNCH_COUNTS}
 
 
 def check_launches(path: str, launches: dict, expected: dict) -> None:
@@ -738,6 +905,64 @@ def phase_slice_strong(dev, card: str) -> dict:
     check_launches("slice_cbafed", cbafed, {
         "fused_warp_normalize": 2 * steps, "normalize_flip_cutout": 1})
     return {"slice_strong": fixmatch, "slice_cbafed": cbafed}
+
+
+def phase_probe_convbn(card: str) -> dict:
+    """The ported probe, 3 reps of 8 calls a candidate at each shape: each
+    fused candidate launches once to warm up and 24 times timed."""
+    from fedmlp_tpu_torch.tools import probe_fused_conv_bn as probe
+
+    reps, iters = 3, 8
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    results = probe.main(["--reps", str(reps), "--iters", str(iters)])
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    times = {k: v for k, v in results.items() if k.endswith("_ms")}
+    print(f"phase probe_convbn: {len(probe.SHAPES)} shapes in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    if len(times) != 4 * len(probe.SHAPES) or not all(
+            math.isfinite(v) and v > 0 for v in times.values()):
+        raise SystemExit(f"probe_convbn: missing or bad times {times}")
+    per = len(probe.SHAPES) * (1 + reps * iters)
+    check_launches("probe_convbn", launches,
+                   {"conv1x1_bn_stats": per, "conv1x1_bn_act_2pass": per})
+    return launches
+
+
+def phase_slice_fednoro(dev, card: str) -> dict:
+    """FedNoRo, 20 clients, warm-up 1, three rounds (the last evaluates):
+    round 0 FedAvg; round 1 splits on round 0's losses and aggregates with
+    DaAgg while every client still trains LA_KD; round 2 trains the clean
+    clients on plain BCE and the noisy ones on LA_KD, and splits again."""
+    from fedmlp_tpu_torch.config import FedNoRoConfig
+    from fedmlp_tpu_torch.train import Trainer
+
+    rounds = 3
+    t0 = time.perf_counter()
+    tr = Trainer(strong_config("fednoro", K, rounds,
+                               fednoro=FedNoRoConfig(rounds_warmup=1, begin=0, end=2)),
+                 device=dev)
+    torch.cuda.synchronize()
+    print(f"phase slice_fednoro: setup {time.perf_counter() - t0:.2f} s")
+    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
+    reset_launch_counts()
+    run_rounds("slice_fednoro", card, tr, rounds)
+    launches = read_launch_counts()
+    st = tr.server_state
+    weights = getattr(tr, "daagg_weights", None)
+    print(f"phase slice_fednoro: split on round 1's losses: clean {st['clean']} noisy "
+          f"{st['noisy']}; DaAgg weights {None if weights is None else weights.tolist()}")
+    if st["clean"] is None or sorted(st["clean"] + st["noisy"]) != list(range(K)):
+        raise SystemExit(f"slice_fednoro: the split does not cover the {K} clients: {st}")
+    if weights is None or not (all(math.isfinite(v) for v in weights)
+                               and abs(float(weights.sum()) - 1.0) <= 1e-5):
+        raise SystemExit(f"slice_fednoro: DaAgg did not run or its weights are bad: {weights}")
+    # one weak view a step (the frozen global model reads the same view);
+    # the last round's evaluation normalizes its 64 test images in one chunk
+    check_launches("slice_fednoro", launches,
+                   {"fused_warp_normalize": rounds * steps, "normalize_flip_cutout": 1})
+    return launches
 
 
 def _read_losses(metrics_path: str) -> dict:
@@ -1022,6 +1247,8 @@ _PATH_KERNELS = {
     "slice_strong": ("fused_warp_normalize", "hshift_rows",
                      "bce_with_logits_masked_sum", "normalize_flip_cutout"),
     "slice_cbafed": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "probe_convbn": ("conv1x1_bn_stats", "conv1x1_bn_act_2pass"),
+    "slice_fednoro": ("fused_warp_normalize", "normalize_flip_cutout"),
 }
 
 
@@ -1029,9 +1256,10 @@ def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong",
+    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
+                                        "probe_convbn,slice_fednoro",
                     help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
-                         "profile,profile_strong")
+                         "probe_convbn,slice_fednoro,profile,profile_strong")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1050,6 +1278,7 @@ def main(argv=None) -> int:
         kernels.extend(phase_kernel_dw(dev))
         kernels.append(phase_kernel_preproc(dev))
         kernels.append(phase_kernel_bce(dev))
+        kernels.extend(phase_kernel_conv_bn(dev))
     by_path, conv_seconds = {}, None
     if "slice" in phases:
         by_path["slice"], conv_seconds = phase_slice(dev, card)
@@ -1059,6 +1288,10 @@ def main(argv=None) -> int:
         by_path["cli"] = phase_cli(dev, card)
     if "slice_strong" in phases:
         by_path.update(phase_slice_strong(dev, card))
+    if "probe_convbn" in phases:
+        by_path["probe_convbn"] = phase_probe_convbn(card)
+    if "slice_fednoro" in phases:
+        by_path["slice_fednoro"] = phase_slice_fednoro(dev, card)
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:

@@ -1,9 +1,10 @@
-"""Federated algorithm registry (FedMLP, FedAVG, FixMatch and CBAFed so far)."""
+"""Federated algorithm registry (FedMLP, FedAVG, FedNoRo, FixMatch and CBAFed
+so far)."""
 
-from fedmlp_tpu_torch.algos import cbafed, fedavg, fedmlp, fixmatch
+from fedmlp_tpu_torch.algos import cbafed, fedavg, fedmlp, fednoro, fixmatch
 
 _REGISTRY = {"cbafed": cbafed, "fedavg": fedavg, "fedmlp": fedmlp,
-             "fixmatch": fixmatch}
+             "fednoro": fednoro, "fixmatch": fixmatch}
 
 
 def registered() -> list[str]:

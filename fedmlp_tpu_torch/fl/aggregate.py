@@ -7,6 +7,7 @@ running statistics), as the engine returns it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -55,3 +56,63 @@ def fedavg_proto(protos, weight, class_active_mask):
     num = torch.einsum("ck,kcd->cd", wm, p)
     den = wm.sum(1)[:, None]
     return num / torch.clamp(den, min=1e-12)
+
+
+def model_dist(tree_a: dict, tree_b: dict) -> torch.Tensor:
+    """Σ over entries of ‖a − b‖_F in f32, floating-point entries only
+    (reference: utils/FedAvg.py:43-49; the FedNoRo variant skips integer
+    tensors, utils/FedNoRo.py:110-111)."""
+    total = None
+    for name, a in tree_a.items():
+        if not a.is_floating_point():
+            continue
+        n = torch.linalg.vector_norm((a.float() - tree_b[name].float()).reshape(-1))
+        total = n if total is None else total + n
+    return torch.zeros((), dtype=torch.float32) if total is None else total
+
+
+def _pair_dists(stacked: dict, rows, cols) -> torch.Tensor:
+    """``model_dist`` between client ``rows[i]`` and client ``cols[j]`` of
+    the client-stacked ``stacked`` → [len(rows), len(cols)] f32: per entry,
+    all pairs at once."""
+    total = None
+    for x in stacked.values():
+        if not x.is_floating_point():
+            continue
+        flat = x.float().reshape(x.shape[0], -1)
+        a, b = flat[list(rows)], flat[list(cols)]
+        d = torch.linalg.vector_norm(a[:, None, :] - b[None, :, :], dim=2)
+        total = d if total is None else total + d
+    return total
+
+
+def daagg_weights(stacked: dict, dict_len, clean_clients, noisy_clients) -> torch.Tensor:
+    """FedNoRo's client weights [K] (reference: utils/FedNoRo.py:84-103):
+    dataset-size shares, each noisy client's scaled by exp(−d), d its least
+    ``model_dist`` to a clean client over the largest such distance, then
+    renormalized to sum to 1."""
+    device = next(iter(stacked.values())).device
+    w = torch.as_tensor(np.asarray(dict_len), dtype=torch.float32, device=device)
+    w = w / w.sum()
+    distance = torch.zeros_like(w)
+    if len(noisy_clients) and len(clean_clients):
+        dmin = _pair_dists(stacked, noisy_clients, clean_clients).min(dim=1).values
+        distance[list(noisy_clients)] = dmin
+    distance = distance / torch.clamp(distance.max(), min=1e-12)
+    cw = w * torch.exp(-distance)
+    return cw / cw.sum()
+
+
+def weighted_sum(stacked: dict, weights: torch.Tensor) -> dict:
+    """Σ_k weights[k]·x[k] for every entry, in f32, not divided by
+    Σ weights."""
+    return {name: (x.float() * weights.reshape((-1,) + (1,) * (x.dim() - 1))).sum(0)
+            for name, x in stacked.items()}
+
+
+def daagg(stacked: dict, dict_len, clean_clients, noisy_clients) -> dict:
+    """FedNoRo distance-aware aggregation: the clients' sum weighted by
+    :func:`daagg_weights` (which already sum to 1, so the sum is not divided
+    again, as the reference's dict loop)."""
+    return weighted_sum(stacked, daagg_weights(stacked, dict_len, clean_clients,
+                                               noisy_clients))

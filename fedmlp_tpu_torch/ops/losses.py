@@ -1,7 +1,8 @@
-"""Losses of the ported slice."""
+"""Losses of the ported slice, and the rampups that weight them."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -31,3 +32,24 @@ def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor, weight=None):
     if weight is not None:
         loss = loss * weight
     return loss
+
+
+# ----------------------------------------------------------------------
+# Rampups (host-side floats, computed with numpy)
+# ----------------------------------------------------------------------
+
+def sigmoid_rampup(current: float, rampup_length: float) -> float:
+    """exp(−5(1 − t)²) rampup (reference: utils/local_training.py:83-90)."""
+    if rampup_length == 0:
+        return 1.0
+    current = float(np.clip(current, 0.0, rampup_length))
+    phase = 1.0 - current / rampup_length
+    return float(np.exp(-5.0 * phase * phase))
+
+
+def sigmoid_rampup_bounded(current: float, begin: float, end: float) -> float:
+    """FedNoRo's rampup, clipped to [begin, end] (reference:
+    utils/FedNoRo.py:72-81)."""
+    current = float(np.clip(current, begin, end))
+    phase = 1.0 - (current - begin) / (end - begin)
+    return float(np.exp(-5.0 * phase * phase))

@@ -60,6 +60,8 @@ def _cfg_dict(cfg):
     ["--exp", "FeMLP", "--dataset", "ICH", "--rounds_FedMLP_stage1", "7"],
     ["--exp", "FedAVG", "--dataset", "ChestXray14"],
     ["--exp", "FedAVG+FixMatch", "--dataset", "synthetic"],
+    ["--exp", "FedNoRo", "--dataset", "synthetic", "--rounds_FedNoRo_warmup", "1",
+     "--begin", "0", "--end", "2", "--a", "0.6"],
     ["--exp", "FedAVG", "--dataset", "ICH", "--data_root", "/data/ich",
      "--host_stream", "1", "--stream_window", "4"],
     ["--exp", "RoFL", "--dataset", "synthetic", "--n_classes", "6", "--n_clients", "3",
@@ -92,7 +94,7 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--exp", "FedNoRo"], "algorithm='fednoro' is not ported"),
+    (["--exp", "RSCFed"], "algorithm='rscfed' is not ported"),
     (["--exp", "FedAVG", "--model", "Resnet18"], "model='Resnet18' is not ported"),
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x"], "--data_root needs load_packed"),
@@ -131,7 +133,7 @@ def _cfg(**kw):
     ("pre_augment", dict(pre_augment=64)),
     ("view_concat", dict(view_concat="on")),
     ("fedmlp.mixup", dict(fedmlp=FedMLPConfig(mixup=1))),
-    ("algorithm", dict(algorithm="fednoro")),
+    ("algorithm", dict(algorithm="rscfed")),
     ("model", dict(model="resnet18")),
     ("batched_global", dict(batched_global="on")),
     ("pretrained_path", dict(pretrained_path="w.npz")),

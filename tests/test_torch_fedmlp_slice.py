@@ -33,6 +33,7 @@ from fedmlp_tpu_torch.models import efficientnet as TE
 from fedmlp_tpu_torch.parallel import fl_runtime as trt
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -167,8 +168,9 @@ def test_stage2_step_matches_jax():
 
 
 def _trainers():
+    # seed 7: see test_trainer_two_stage_slice_matches_jax
     kw = dict(algorithm="fedmlp", model="smallcnn", batch_size=8, base_lr=1e-3,
-              n_clients=4, local_ep=1, rounds_warmup=3, eval_every=100, seed=3,
+              n_clients=4, local_ep=1, rounds_warmup=3, eval_every=100, seed=7,
               p_pos=0.0, compute_dtype="float32", output_dir="")
     # thresholds raised so that tagging selects cells at this size
     fed = dict(rounds_stage1=2, clean_threshold=0.2, noise_threshold=0.2)
@@ -186,7 +188,16 @@ def test_trainer_two_stage_slice_matches_jax():
     """Two stage-1 rounds (the second harvests prototypes and τ) and one
     stage-2 round of both Trainers (K=4, smallcnn, 32 px): per-round client
     losses within rtol 1e-3, τ and prototypes within atol 1e-3, the int8
-    tags equal, and global_test metrics within atol 1e-3."""
+    tags equal, and global_test metrics within atol 1e-3.
+
+    The data come from seed 7. A client's first Adam step moves each weight
+    by lr·g/(|g| + 1e-8), g the gradient plus the L2 decay 5e-4·w: an entry
+    whose decayed gradient lies within float noise of 0 (seed 3: one conv1
+    weight of client 1's first stage-2 step, g + 5e-4·w ≈ −2e-7) moves by
+    about ±lr = 1e-3, whichever way the summation order rounds it. The
+    stage-2 batch norms carry that into the prototypes (seed 3: 3e-3 off
+    with one torch thread, in tolerance with eight). Under seed 7 the
+    largest prototype difference is 1.4e-5 to 5.1e-5 with 1 to 8 threads."""
     jt, tt = _trainers()
     n_tagged = 0
     for rnd in range(3):
@@ -222,27 +233,28 @@ import fedmlp_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fedmlp_tpu_torch.__path__, "fedmlp_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools"))
-assert len(names) >= 32, names
-for needed in ("cli", "algos.fedavg", "algos.fixmatch", "algos.cbafed", "eval.evaluate",
-               "ops.depthwise", "ops.dw_pallas", "ops.pallas_ops", "utils.checkpoint",
-               "utils.logging"):
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools", "sklearn")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+assert len(names) >= 40, names
+for needed in ("cli", "algos.fedavg", "algos.fixmatch", "algos.cbafed", "algos.fednoro",
+               "algos.detection", "eval.evaluate", "ops.depthwise", "ops.dw_pallas",
+               "ops.pallas_ops", "ops.fused_conv_bn", "tools.probe_fused_conv_bn",
+               "utils.checkpoint", "utils.logging"):
     assert "fedmlp_tpu_torch." + needed in names, needed
+assert not bad, bad
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print(len(names))
 """
 
-_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools")
+_FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "fedmlp_tpu", "tools", "sklearn")
 
 
 def test_port_imports_no_jax_nor_the_jax_package():
     """Every module of fedmlp_tpu_torch, and chip_smoke.py, imports in a
-    fresh interpreter without pulling in jax, flax, optax, fedmlp_tpu or
-    tools."""
+    fresh interpreter without pulling in jax, flax, optax, fedmlp_tpu, tools
+    or sklearn (the machine with the card has no scikit-learn)."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], capture_output=True,
                          text=True, timeout=120, cwd=_REPO)
     assert out.returncode == 0, out.stderr

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from fedmlp_tpu_torch.ops import dw_pallas as D
+from fedmlp_tpu_torch.ops import fused_conv_bn as CB
 from fedmlp_tpu_torch.ops import pallas_ops as P
 from fedmlp_tpu_torch.ops import warp as W
 
@@ -286,3 +287,41 @@ def test_new_kernels_reject_what_they_do_not_take(card):
         P.bce_with_logits_masked_sum(z.t().contiguous().t(), z, torch.ones(6, device=card), z)
     with pytest.raises(ValueError, match="f32 on"):
         P.bce_with_logits_masked_sum(z, z, torch.ones(6), z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["swish", "none"])
+@pytest.mark.parametrize("M,Ci,Co,dtype", [
+    (1000, 16, 96, torch.bfloat16), (63, 24, 144, torch.float32),
+    (1, 3, 50, torch.bfloat16), (6272, 80, 480, torch.bfloat16),
+    (4097, 80, 200, torch.float32), (100352, 24, 144, torch.bfloat16)])
+def test_conv_bn_kernels_match_plain_versions(card, M, Ci, Co, dtype, act):
+    """Ragged M (not a multiple of the 64-row tile), Co not a multiple of the
+    96-column block, both activations, each kernel called twice; the checks
+    and tolerances of chip_smoke.py's kernel phase (``_conv_bn_case``): y
+    within one ulp, sums within 1e-5 relative, out within one bf16 ulp or
+    four f32 ulps beyond what the two sets of statistics make of it, equal
+    bits on a repeat."""
+    import chip_smoke
+
+    CB.reset_launch_counts()
+    res = chip_smoke._conv_bn_case(card, M, Ci, Co, dtype, act)
+    assert CB.LAUNCH_COUNTS == {"conv1x1_bn_stats": 2, "conv1x1_bn_act_2pass": 2}
+    assert res["ok"], repr(res)
+
+
+@pytest.mark.cuda
+def test_conv_bn_kernels_reject_what_they_do_not_take(card):
+    """A CUDA tensor gets the kernel or an exception, never the plain
+    version."""
+    x = torch.zeros((64, 16), device=card)
+    w = torch.zeros((16, 8), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        CB.conv1x1_bn_stats(x.t().contiguous().t(), w)
+    with pytest.raises(ValueError, match="above the kernel"):
+        CB.conv1x1_bn_stats(torch.zeros((4, 300), device=card),
+                            torch.zeros((300, 8), device=card))
+    with pytest.raises(ValueError, match="w on"):
+        CB.conv1x1_bn_stats(x, w.cpu())
+    with pytest.raises(ValueError, match="scale"):
+        CB.conv1x1_bn_act_2pass(x, w, torch.ones(7, device=card), torch.zeros(8, device=card))

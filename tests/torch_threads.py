@@ -4,9 +4,7 @@ one_torch_thread``): one intra-op torch thread while the importing file runs.
 The suite's worker processes share the machine's cores; torch's thread pool
 beside JAX's only makes them wait on one another (the same file runs several
 times faster with one thread under a loaded suite). The earlier setting comes
-back afterwards, for the files that follow in the same worker:
-tests/test_torch_fedmlp_slice.py keeps the default, because its two-stage
-parity test sits close to its tolerance and moves with the summation order.
+back afterwards, for the files that follow in the same worker.
 """
 
 import pytest
