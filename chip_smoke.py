@@ -24,7 +24,7 @@ first failure:
    after, and must match the count the rounds imply.
 4. slice_dw: the same geometry with ``dw_backend='pallas'``, one stage-1
    round (which harvests) and one stage-2 round: the depthwise backward goes
-   through ``dw_conv_s1`` and ``dw_wgrad_s1``.
+   through ``dw_dgrad`` and ``dw_wgrad``.
 5. cli:    ``fedmlp_tpu_torch.cli.main`` in-process: FedAVG, 4 clients,
    EfficientNet-B0 with ``--dw_backend pallas``, 2 rounds with a checkpoint
    each, then ``--resume`` from round 0's checkpoint; round 1 must repeat.
@@ -88,12 +88,20 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 5, flush=None) -> float:
+# clock cycles the card spins before a timed call (about 0.5 ms at 1.98 GHz),
+# so that the host has queued the call before its first event fires
+HOLD_CYCLES = 1_000_000
+
+
+def cuda_ms(fn, iters: int, warmup: int = 5, flush=None, hold: bool = True) -> float:
     """Median milliseconds of ``fn()`` over ``iters`` runs, each timed with
     its own pair of CUDA events. ``flush``, a buffer larger than the 50 MB
     L2, is overwritten before every timed run, so that ``fn`` finds its
     inputs in device memory as a caller in the middle of a backward pass
-    does."""
+    does. ``hold``: the card spins before the first event, so the events
+    span the device's work alone; without it, an idle card records the
+    first event at once and the span also holds the host's time to launch
+    ``fn``'s kernels."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -101,6 +109,8 @@ def cuda_ms(fn, iters: int, warmup: int = 5, flush=None) -> float:
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -570,24 +580,17 @@ def dw_layer_calls(dev) -> list:
 
 
 def _dw_case(dev, g, call, dtype):
-    """Random operands of one layer's backward: x, the cotangent (strided,
-    and zero-dilated to input resolution), the filter, and the padded input
-    that the library's convolution backward takes."""
-    from fedmlp_tpu_torch.ops import dw_pallas as dwp
-
+    """Random operands of one layer's backward: x, the strided cotangent,
+    the filter, and the padded input that the library's convolution
+    backward takes."""
     _, C, H, W, k, stride, pads = call
     (pt, pb), (pl, pr) = pads
     Ho, Wo = (H + pt + pb - k) // stride + 1, (W + pl + pr - k) // stride + 1
     x = torch.randn((B, C, H, W), generator=g, device=dev).to(dtype)
     dy = torch.randn((B, C, Ho, Wo), generator=g, device=dev).to(dtype)
     w = (torch.randn((C, 1, k, k), generator=g, device=dev) * 0.2).to(dtype)
-    return {
-        "x": x, "dy": dy, "w": w, "k": k, "stride": stride, "pads": pads,
-        "dy_e": dwp.dilate_to_input(dy, stride, H, W).contiguous(),
-        "wf": w.flip(2, 3).contiguous(),
-        "dx_pads": ((k - 1 - pt, pt), (k - 1 - pl, pl)),
-        "xp": torch.nn.functional.pad(x, (pl, pr, pt, pb)),
-    }
+    return {"x": x, "dy": dy, "w": w, "k": k, "stride": stride, "pads": pads,
+            "xp": torch.nn.functional.pad(x, (pl, pr, pt, pb))}
 
 
 def _library_backward(case, mask):
@@ -600,12 +603,50 @@ def _library_backward(case, mask):
         [0, 0], C, mask)
 
 
+def _dw_check(call, dtype, dx, dx_ref, dw, dw2, dw_ref) -> tuple[float, float]:
+    """(dx error, dw error) of one layer, or SystemExit.
+
+    dx tolerance. f32: the kernel accumulates the taps with FMAs, the plain
+    version rounds each product and sum, so they differ by a few f32 ulps of
+    sums of magnitude ~1: 1e-5. bf16: both round an f32 sum that differs by
+    those ulps to bf16, so a value on a rounding boundary may land one bf16
+    ulp apart: 2^-7 relative. dw tolerance: f32 sums of up to 401,408
+    products (B*Ho*Wo) in another order than the plain version's: 1e-4 of
+    the largest |dw|, in both types (bf16 inputs are read exactly, the
+    accumulation is f32 either way); a repeat gives the same bits."""
+    dx_err = (dx.float() - dx_ref.float()).abs()
+    if dtype == torch.float32:
+        dx_bad = float(dx_err.max()) > 1e-5
+    else:
+        dx_bad = bool((dx_err > dx_ref.float().abs() * 2.0 ** -7 + 1e-6).any())
+    dw_err = float((dw - dw_ref).abs().max())
+    dw_tol = 1e-4 * float(dw_ref.abs().max())
+    name, C, H, W, k, stride, _ = call
+    tname = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"phase kernel: {name} C={C} {H}x{W} k={k} s={stride} {tname} "
+          f"dx max_abs_err={float(dx_err.max()):.3e} "
+          f"dw max_abs_err={dw_err:.3e} (tol {dw_tol:.3e}) "
+          f"repeat_equal={torch.equal(dw, dw2)}")
+    if dx_bad or not math.isfinite(float(dx_err.max())):
+        raise SystemExit(f"dw_dgrad disagrees with its plain version at {call}")
+    if not dw_err <= dw_tol:
+        raise SystemExit(f"dw_wgrad disagrees with its plain version at {call}")
+    if not torch.equal(dw, dw2):
+        raise SystemExit(f"dw_wgrad gave different bits on a repeat at {call}")
+    if dw.dtype != torch.float32 or dx.dtype != dtype or dx.shape != dx_ref.shape:
+        raise SystemExit(f"wrong result types or shape {dx.dtype}, {dw.dtype}, "
+                         f"{tuple(dx.shape)}")
+    return float(dx_err.max()), dw_err
+
+
 def phase_kernel_dw(dev) -> list:
-    """``dw_conv_s1`` and ``dw_wgrad_s1`` against their plain versions at the
-    16 depthwise layers of EfficientNet-B0 (B=32, 224 px; stride-2 layers
-    through the dilated cotangent): every layer in bf16, the two largest
-    also in f32. Times are sums over the 16 bf16 layers, every run starting
-    from a flushed L2."""
+    """``dw_dgrad`` and ``dw_wgrad`` against their plain versions at the 16
+    depthwise layers of EfficientNet-B0 (B=32, 224 px), on the strided
+    cotangent: every layer in bf16, the two largest also in f32. Times are
+    of the bf16 layers, every run starting from a flushed L2; a line a layer
+    and the sums over the 16. ``launch_ms``: the same calls timed without
+    the hold, the host's launch time included (the method of the earlier
+    kernels' rows, for comparison with them)."""
     from fedmlp_tpu_torch.ops import dw_pallas as dwp
 
     calls = dw_layer_calls(dev)
@@ -613,82 +654,62 @@ def phase_kernel_dw(dev) -> list:
     g.manual_seed(1037)
     flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
     largest = sorted(range(16), key=lambda i: -calls[i][1] * calls[i][2] * calls[i][3])[:2]
-    stats = {n: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                 "bytes_ms": 0.0, "flops_ms": 0.0}
-             for n in ("dw_conv_s1", "dw_wgrad_s1")}
+    names = ("dw_dgrad", "dw_wgrad")
+    stats = {n: {"err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0,
+                 "library_ms": 0.0, "bytes_ms": 0.0, "flops_ms": 0.0} for n in names}
     for i, call in enumerate(calls):
-        name, C, H, W, k, stride, pads = call
+        _, C, H, W, k, stride, pads = call
         for dtype in [torch.bfloat16] + ([torch.float32] if i in largest else []):
             case = _dw_case(dev, g, call, dtype)
-            x, dy_e, wf = case["x"], case["dy_e"], case["wf"]
-
-            def conv():
-                return dwp.dw_conv_s1(dy_e, wf, case["dx_pads"])
-
-            def wgrad():
-                return dwp.dw_wgrad_s1(x, dy_e, k, pads)
-
-            dx, dx_ref = conv(), dwp.dw_conv_s1_ref(dy_e, wf, case["dx_pads"])
-            dw, dw2, dw_ref = wgrad(), wgrad(), dwp.dw_wgrad_s1_ref(x, dy_e, k, pads)
+            x, dy, w = case["x"], case["dy"], case["w"]
+            fns = {"dw_dgrad": lambda: dwp.dw_dgrad(dy, w, stride, pads, (H, W)),
+                   "dw_wgrad": lambda: dwp.dw_wgrad(x, dy, k, stride, pads)}
+            refs = {"dw_dgrad": lambda: dwp.dw_dgrad_ref(dy, w, stride, pads, (H, W)),
+                    "dw_wgrad": lambda: dwp.dw_wgrad_ref(x, dy, k, stride, pads)}
+            dx, dw, dw2 = fns["dw_dgrad"](), fns["dw_wgrad"](), fns["dw_wgrad"]()
+            dx_ref, dw_ref = refs["dw_dgrad"](), refs["dw_wgrad"]()
             torch.cuda.synchronize()
-            # dx tolerance. f32: the kernel accumulates the k*k taps with
-            # FMAs, the plain version rounds each product and sum, so they
-            # differ by a few f32 ulps of sums of magnitude ~1: 1e-5. bf16:
-            # both round an f32 sum that differs by those ulps to bf16, so a
-            # value on a rounding boundary may land one bf16 ulp apart:
-            # 2^-7 relative.
-            dx_err = (dx.float() - dx_ref.float()).abs()
-            if dtype == torch.float32:
-                dx_bad = float(dx_err.max()) > 1e-5
-            else:
-                dx_bad = bool((dx_err > dx_ref.float().abs() * 2.0 ** -7 + 1e-6).any())
-            # dw tolerance: f32 sums of up to 401,408 products (B*H*W) in
-            # another order than the plain version's: 1e-4 of the largest
-            # |dw|, in both types (bf16 inputs are read exactly, the
-            # accumulation is f32 either way).
-            dw_err = float((dw - dw_ref).abs().max())
-            dw_tol = 1e-4 * float(dw_ref.abs().max())
-            tname = "bf16" if dtype == torch.bfloat16 else "f32"
-            print(f"phase kernel: {name} C={C} {H}x{W} k={k} s={stride} {tname} "
-                  f"dx max_abs_err={float(dx_err.max()):.3e} "
-                  f"dw max_abs_err={dw_err:.3e} (tol {dw_tol:.3e}) "
-                  f"repeat_equal={torch.equal(dw, dw2)}")
-            if dx_bad or not math.isfinite(float(dx_err.max())):
-                raise SystemExit(f"dw_conv_s1 disagrees with its plain version at {call}")
-            if not dw_err <= dw_tol:
-                raise SystemExit(f"dw_wgrad_s1 disagrees with its plain version at {call}")
-            if not torch.equal(dw, dw2):
-                raise SystemExit(f"dw_wgrad_s1 gave different bits on a repeat at {call}")
-            if dw.dtype != torch.float32 or dx.dtype != dtype:
-                raise SystemExit(f"wrong result types {dx.dtype}, {dw.dtype}")
-            stats["dw_conv_s1"]["err"] = max(stats["dw_conv_s1"]["err"],
-                                             float(dx_err.max()))
-            stats["dw_wgrad_s1"]["err"] = max(stats["dw_wgrad_s1"]["err"], dw_err)
+            errs = _dw_check(call, dtype, dx, dx_ref, dw, dw2, dw_ref)
+            for n, e in zip(names, errs):
+                stats[n]["err"] = max(stats[n]["err"], e)
             if dtype != torch.bfloat16:
                 continue
-            plane_bytes = x.numel() * x.element_size()
-            for kname, fn, ref, mask, small_bytes in (
-                    ("dw_conv_s1", conv,
-                     lambda: dwp.dw_conv_s1_ref(dy_e, wf, case["dx_pads"]),
-                     [True, False, False], wf.numel() * wf.element_size()),
-                    ("dw_wgrad_s1", wgrad,
-                     lambda: dwp.dw_wgrad_s1_ref(x, dy_e, k, pads),
-                     [False, True, False], dw.numel() * dw.element_size())):
-                st = stats[kname]
-                st["ms"] += cuda_ms(fn, 10, 2, flush)
-                st["plain_ms"] += cuda_ms(ref, 3, 1, flush)
-                st["library_ms"] += cuda_ms(
-                    lambda: _library_backward(case, mask), 10, 2, flush)
-                # two plane-sized tensors read or written once, plus the
-                # filter or its gradient; 2*k*k flops an element
-                st["bytes_ms"] += (2 * plane_bytes + small_bytes) / HBM_BYTES_PER_S * 1e3
-                st["flops_ms"] += 2 * k * k * x.numel() / F32_FLOP_PER_S * 1e3
+            # the bytes the inputs need: x (read, or dx written) at input
+            # resolution, dy read at output resolution, the filter read or dw
+            # written in f32; 2*k*k flops a cotangent element (each meets k*k
+            # taps)
+            planes = (x.numel() + dy.numel()) * x.element_size()
+            small = {"dw_dgrad": w.numel() * w.element_size(), "dw_wgrad": dw.numel() * 4}
+            flops = 2 * k * k * dy.numel()
+            line = []
+            for n, mask in (("dw_dgrad", [True, False, False]),
+                            ("dw_wgrad", [False, True, False])):
+                st = stats[n]
+                ms = cuda_ms(fns[n], 10, 2, flush)
+                launch_ms = cuda_ms(fns[n], 10, 2, flush, hold=False)
+                plain_ms = cuda_ms(refs[n], 3, 1, flush)
+                library_ms = cuda_ms(lambda: _library_backward(case, mask), 10, 2, flush)
+                bytes_ms = (planes + small[n]) / HBM_BYTES_PER_S * 1e3
+                flops_ms = flops / F32_FLOP_PER_S * 1e3
+                bound = max(bytes_ms, flops_ms)
+                st["ms"] += ms
+                st["launch_ms"] += launch_ms
+                st["plain_ms"] += plain_ms
+                st["library_ms"] += library_ms
+                st["bytes_ms"] += bytes_ms
+                st["flops_ms"] += flops_ms
+                line.append(f"{n} ms={ms:.4f} launch_ms={launch_ms:.4f} "
+                            f"library_ms={library_ms:.4f} "
+                            f"bound_ms={bound:.4f} share={bound / ms:.3f}")
+            print(f"phase kernel: layer {i + 1:2d} C={C} {H}x{W} k={k} s={stride} bf16 "
+                  + " | ".join(line))
     out = []
-    for kname, line in (("dw_conv_s1", 112), ("dw_wgrad_s1", 144)):
+    for kname, line in (("dw_dgrad", 112), ("dw_wgrad", 144)):
         st = stats[kname]
         bound_ms = max(st["bytes_ms"], st["flops_ms"])
         print(f"phase kernel: {kname} 16 layers bf16 B={B}: ms={st['ms']:.4f} "
-              f"plain_ms={st['plain_ms']:.4f} library_ms={st['library_ms']:.4f} "
+              f"launch_ms={st['launch_ms']:.4f} plain_ms={st['plain_ms']:.4f} "
+              f"library_ms={st['library_ms']:.4f} "
               f"bound_ms={bound_ms:.4f} share={bound_ms / st['ms']:.3f} "
               f"(library: aten.convolution_backward, one output)")
         out.append({
@@ -774,7 +795,7 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
     dw = 16 * train_forwards if cfg.dw_backend == "pallas" else 0
     expected = {
         "fused_warp_normalize": train_forwards + chunks + 2 * chunks * n_stage2,
-        "dw_conv_s1": dw, "dw_wgrad_s1": dw,
+        "dw_dgrad": dw, "dw_wgrad": dw,
     }
 
     reset_launch_counts()
@@ -817,7 +838,7 @@ def phase_slice(dev, card: str) -> tuple[dict, list]:
 def phase_slice_dw(dev, card: str, conv_seconds) -> dict:
     """The same geometry with ``dw_backend='pallas'``: one stage-1 round
     (which harvests) and one stage-2 round, the depthwise backward through
-    ``dw_conv_s1`` and ``dw_wgrad_s1``."""
+    ``dw_dgrad`` and ``dw_wgrad``."""
     launches, secs = run_flagship(
         "slice_dw", dev, card, flagship_config(K, N, 1, "pallas"), 1, 2)
     if conv_seconds:
@@ -1020,8 +1041,8 @@ def phase_cli(dev, card: str) -> dict:
         # the last round evaluates: 64 test images, one chunk of the test
         # transform
         check_launches("cli", launches, {
-            "fused_warp_normalize": steps, "dw_conv_s1": 16 * steps,
-            "dw_wgrad_s1": 16 * steps, "normalize_flip_cutout": 1})
+            "fused_warp_normalize": steps, "dw_dgrad": 16 * steps,
+            "dw_wgrad": 16 * steps, "normalize_flip_cutout": 1})
 
         cli.main(argv + ["--resume", ckpts[0]])
         torch.cuda.synchronize()
@@ -1043,7 +1064,7 @@ def phase_cli(dev, card: str) -> dict:
 
 _KERNEL_KINDS = (
     ("warp", ("fused_warp",)),
-    ("dw_kernels", ("dw_conv_s1", "dw_wgrad")),
+    ("dw_kernels", ("dw_dgrad", "dw_wgrad")),
     ("conv", ("conv", "cudnn", "xmma", "gemm", "wgrad", "dgrad", "cutlass")),
     ("batch_norm", ("batch_norm", "bn_", "batchnorm")),
     ("adam", ("multi_tensor", "adam")),
@@ -1241,8 +1262,8 @@ def phase_profile(dev, card: str) -> None:
 # kernels each path must launch at least once
 _PATH_KERNELS = {
     "slice": ("fused_warp_normalize",),
-    "slice_dw": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1"),
-    "cli": ("fused_warp_normalize", "dw_conv_s1", "dw_wgrad_s1",
+    "slice_dw": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad"),
+    "cli": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad",
             "normalize_flip_cutout"),
     "slice_strong": ("fused_warp_normalize", "hshift_rows",
                      "bce_with_logits_masked_sum", "normalize_flip_cutout"),

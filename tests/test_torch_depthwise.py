@@ -48,13 +48,13 @@ def _inputs(seed, hw, c, k, batch=2):
     (7, 6, 5, ((3, 1), (0, 4))),  # more padding than data
 ])
 def test_conv_s1_ref_matches_jax_kernel(hw, c, k, pads):
-    """``dw_conv_s1`` (its plain version, on the CPU) against the Pallas
-    conv kernel in interpret mode; rtol/atol 1e-5: both sum k² float32
-    products, in tap order."""
+    """``dw_conv_s1_ref`` (the JAX kernel's interface in plain PyTorch, which
+    the strided tests build on) against the Pallas conv kernel in interpret
+    mode; rtol/atol 1e-5: both sum k² float32 products, in tap order."""
     _, x, w = _inputs(0, hw, c, k)
     pads = pads or (_same_pads(hw, k, 1), _same_pads(hw, k, 1))
     want = dw_conv_flat_s1(jnp.asarray(x), jnp.asarray(w), pads, interpret=True)
-    got = T.dw_conv_s1(_nchw(x), _oihw(w), pads)
+    got = T.dw_conv_s1_ref(_nchw(x), _oihw(w), pads)
     np.testing.assert_allclose(got.numpy(), _nchw(want).numpy(), rtol=1e-5, atol=1e-5)
 
 
@@ -117,15 +117,15 @@ def test_plain_versions_take_bf16_inputs():
     bf16 (one ulp, 2^-7 relative) and dw, returned in float32, not at all."""
     rs, x, w = _inputs(3, 10, 6, 5)
     pads = ((1, 3), (2, 2))
-    xb, wb = _nchw(x).bfloat16(), _oihw(w).bfloat16()
-    dyb = torch.from_numpy(rs.randn(2, 6, 10, 10).astype(np.float32)).bfloat16()
-    got = T.dw_conv_s1(xb, wb, pads)
-    want = T.dw_conv_s1(xb.float(), wb.float(), pads)
+    dyb, wb = _nchw(x).bfloat16(), _oihw(w).bfloat16()
+    xb = torch.from_numpy(rs.randn(2, 6, 10, 10).astype(np.float32)).bfloat16()
+    got = T.dw_dgrad(dyb, wb, 1, pads, (10, 10))
+    want = T.dw_dgrad(dyb.float(), wb.float(), 1, pads, (10, 10))
     assert got.dtype == torch.bfloat16
     assert bool(((got.float() - want).abs() <= want.abs() * 2.0 ** -7 + 1e-6).all())
-    dw = T.dw_wgrad_s1(xb, dyb, 5, pads)
+    dw = T.dw_wgrad(xb, dyb, 5, 1, pads)
     assert dw.dtype == torch.float32 and dw.shape == (6, 1, 5, 5)
-    assert torch.equal(dw, T.dw_wgrad_s1(xb.float(), dyb.float(), 5, pads))
+    assert torch.equal(dw, T.dw_wgrad(xb.float(), dyb.float(), 5, 1, pads))
 
 
 def test_module_casts_like_conv2d_under_autocast():
@@ -145,44 +145,51 @@ def test_module_casts_like_conv2d_under_autocast():
     assert y.dtype == torch.bfloat16 and torch.equal(y, y_ref)
     y.float().sum().backward()
     assert m.weight.grad.dtype == torch.float32
-    dy_e = T.dilate_to_input(torch.ones_like(y), 2, 8, 8)
-    want = T.dw_wgrad_s1_ref(x.bfloat16(), dy_e, 3, pads).bfloat16().float()
+    want = T.dw_wgrad_ref(x.bfloat16(), torch.ones_like(y), 3, 2, pads).bfloat16().float()
     assert torch.equal(m.weight.grad, want)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x = torch.zeros(1, 2, 4, 4)
     w = torch.zeros(2, 1, 3, 3)
-    with pytest.raises(ValueError, match="sum to k-1"):
-        T.dw_conv_s1(x, w, ((1, 0), (1, 1)))
-    with pytest.raises(ValueError, match="match x's type"):
-        T.dw_conv_s1(x, w.bfloat16(), ((1, 1), (1, 1)))
+    pads = ((1, 1), (1, 1))
+    with pytest.raises(ValueError, match="does not match"):
+        T.dw_dgrad(x, w, 1, ((1, 0), (1, 1)), (4, 4))
+    with pytest.raises(ValueError, match="match the cotangent's type"):
+        T.dw_dgrad(x, w.bfloat16(), 1, pads, (4, 4))
     with pytest.raises(ValueError, match=r"w must be \[2, 1, k, k\]"):
-        T.dw_conv_s1(x, torch.zeros(3, 1, 3, 3), ((1, 1), (1, 1)))
-    with pytest.raises(ValueError, match="x's shape"):
-        T.dw_wgrad_s1(x, torch.zeros(1, 2, 2, 2), 3, ((1, 1), (1, 1)))
+        T.dw_dgrad(x, torch.zeros(3, 1, 3, 3), 1, pads, (4, 4))
+    with pytest.raises(ValueError, match="must be"):
+        T.dw_wgrad(x, torch.zeros(1, 2, 2, 2), 3, 1, pads)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
-        T.dw_wgrad_s1(x.double(), x.double(), 3, ((1, 1), (1, 1)))
+        T.dw_wgrad(x.double(), x.double(), 3, 1, pads)
     with pytest.raises(ValueError, match="does not fit"):
         T.dilate_to_input(torch.zeros(1, 1, 4, 4), 2, 6, 6)
 
 
 def test_wgrad_plan_covers_every_item():
-    """The launch plan of ``dw_wgrad_s1`` at the 16 EfficientNet-B0 shapes
-    (B=32, 224 px): tiles cover the plane, groups only where a tile is the
-    whole plane, at least one and at most as many blocks a channel as there
-    are item groups, shared memory within the kernel's limit."""
-    shapes = [(32, 112, 3), (96, 112, 3), (144, 56, 3), (144, 56, 5), (240, 28, 5),
-              (240, 28, 3), (480, 14, 3), (480, 14, 5), (672, 14, 5), (1152, 7, 5),
-              (1152, 7, 3), (5, 9, 5)]
-    for C, hw, k in shapes:
-        th, group, splits = T.wgrad_plan(32, C, hw, hw)
-        n_tiles = -(-hw // th)
-        assert 1 <= th <= hw and n_tiles * th >= hw
-        assert group == 1 or n_tiles == 1
-        n_groups = -(-(32 * n_tiles) // group)
-        assert 1 <= splits <= n_groups
-        assert group * (th + k - 1) * (hw + k - 1) * 4 <= 40 * 1024
+    """The launch plan of ``dw_wgrad`` at the 16 EfficientNet-B0 shapes
+    (B=32, 224 px, bf16) and an odd one: row tiles where a row is at least 56
+    values of whole 16-byte vectors, whole-plane channel groups elsewhere;
+    at least one and at most as many blocks a channel (group) as there are
+    items, shared memory within the opt-in limit. (The read bounds of every
+    item: tests/test_torch_dw_strided.py.)"""
+    shapes = [(32, 112, 3, 1), (96, 112, 3, 2), (144, 56, 3, 1), (144, 56, 5, 2),
+              (240, 28, 5, 1), (240, 28, 3, 2), (480, 14, 3, 1), (480, 14, 5, 1),
+              (672, 14, 5, 1), (672, 14, 5, 2), (1152, 7, 5, 1), (1152, 7, 3, 1),
+              (5, 9, 5, 1)]
+    for C, hw, k, s in shapes:
+        pt, pb = same_pads(hw, k, s)
+        ho = (hw + pt + pb - k) // s + 1
+        p = T.wgrad_plan(32, C, hw, hw, ho, ho, k, s, pt, pt, 2)
+        assert p.rows == (hw >= 56 and ho % 8 == 0)
+        if p.rows:
+            assert 1 <= p.th <= ho and p.group == 1
+            assert 1 <= p.splits <= 32 * -(-ho // p.th)
+        else:
+            assert p.group in (1, 2, 4, 8, 16, 32, 64)
+            assert 1 <= p.splits <= 32
+        assert p.smem <= T.SMEM_LIMIT
 
 
 def _b0_pair(n_classes=3):

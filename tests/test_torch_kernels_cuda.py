@@ -65,47 +65,49 @@ def test_fused_warp_kernel_rejects_strided_input(card):
 
 
 def _dw_operands(dev, B, C, H, k, stride, pads, dtype, seed=0):
-    """x, the zero-dilated cotangent, the flipped filter and the dx pads of
-    one depthwise layer's backward."""
+    """x, the strided cotangent and the filter of one depthwise layer's
+    backward."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    (pt, pb), (pl, pr) = pads
+    (pt, pb), _ = pads
     Ho = (H + pt + pb - k) // stride + 1
     x = torch.randn((B, C, H, H), generator=g, device=dev).to(dtype)
     dy = torch.randn((B, C, Ho, Ho), generator=g, device=dev).to(dtype)
     w = torch.randn((C, 1, k, k), generator=g, device=dev).to(dtype)
-    dy_e = D.dilate_to_input(dy, stride, H, H).contiguous()
-    return x, dy_e, w.flip(2, 3).contiguous(), ((k - 1 - pt, pt), (k - 1 - pl, pl))
+    return x, dy, w
 
 
 _DW_CASES = [
     # B, C, H, k, stride, pads
     (3, 5, 9, 5, 1, ((1, 3), (4, 0))),      # odd size, uneven pad split
     (2, 7, 7, 5, 1, ((2, 2), (2, 2))),      # more padding than data
-    (4, 24, 30, 3, 2, ((0, 1), (0, 1))),    # stride 2 through the dilation
-    (2, 6, 113, 5, 2, ((2, 2), (2, 2))),    # odd, several row tiles
+    (4, 24, 30, 3, 2, ((0, 1), (0, 1))),    # stride 2, even size: pads (0, 1)
+    (2, 6, 113, 5, 2, ((2, 2), (2, 2))),    # odd, a plane larger than a tile
     (8, 16, 56, 3, 1, ((1, 1), (1, 1))),
 ]
 
+# the 16 depthwise layers of EfficientNet-B0 at 224 px: C, H, k, stride
+_B0_LAYERS = [(32, 112, 3, 1), (96, 112, 3, 2), (144, 56, 3, 1), (144, 56, 5, 2),
+              (240, 28, 5, 1), (240, 28, 3, 2), (480, 14, 3, 1), (480, 14, 3, 1),
+              (480, 14, 5, 1), (672, 14, 5, 1), (672, 14, 5, 1), (672, 14, 5, 2),
+              (1152, 7, 5, 1), (1152, 7, 5, 1), (1152, 7, 5, 1), (1152, 7, 3, 1)]
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,C,H,k,stride,pads", _DW_CASES)
-def test_dw_kernels_match_plain_versions(card, B, C, H, k, stride, pads, dtype):
-    """``dw_conv_s1`` and ``dw_wgrad_s1`` against their plain versions.
+
+def _check_dw_kernels(x, dy, w, k, stride, pads, dtype):
+    """``dw_dgrad`` and ``dw_wgrad`` against their plain versions.
     dx: 1e-5 in float32 (FMA against separately rounded products and sums),
     one bf16 ulp (2^-7 relative) in bf16. dw: 1e-4 of the largest |dw|
     (float32 sums in another order); a repeat gives the same bits."""
-    x, dy_e, wf, dx_pads = _dw_operands(card, B, C, H, k, stride, pads, dtype)
+    hw = tuple(x.shape[2:])
     D.reset_launch_counts()
-    dx = D.dw_conv_s1(dy_e, wf, dx_pads)
-    dw = D.dw_wgrad_s1(x, dy_e, k, pads)
-    dw_again = D.dw_wgrad_s1(x, dy_e, k, pads)
+    dx = D.dw_dgrad(dy, w, stride, pads, hw)
+    dw = D.dw_wgrad(x, dy, k, stride, pads)
+    dw_again = D.dw_wgrad(x, dy, k, stride, pads)
     torch.cuda.synchronize()
-    assert D.LAUNCH_COUNTS == {"dw_conv_s1": 1, "dw_wgrad_s1": 2}
-    dx_ref = D.dw_conv_s1_ref(dy_e, wf, dx_pads)
-    dw_ref = D.dw_wgrad_s1_ref(x, dy_e, k, pads)
+    assert D.LAUNCH_COUNTS == {"dw_dgrad": 1, "dw_wgrad": 2}
+    dx_ref = D.dw_dgrad_ref(dy, w, stride, pads, hw)
+    dw_ref = D.dw_wgrad_ref(x, dy, k, stride, pads)
     assert dx.dtype == dtype and dx.shape == x.shape
-    assert dw.dtype == torch.float32 and dw.shape == (C, 1, k, k)
+    assert dw.dtype == torch.float32 and dw.shape == w.shape
     err = (dx.float() - dx_ref.float()).abs()
     if dtype == torch.float32:
         assert float(err.max()) <= 1e-5
@@ -113,6 +115,47 @@ def test_dw_kernels_match_plain_versions(card, B, C, H, k, stride, pads, dtype):
         assert bool((err <= dx_ref.float().abs() * 2.0 ** -7 + 1e-6).all())
     assert float((dw - dw_ref).abs().max()) <= 1e-4 * float(dw_ref.abs().max())
     assert torch.equal(dw, dw_again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,k,stride,pads", _DW_CASES)
+def test_dw_kernels_match_plain_versions(card, B, C, H, k, stride, pads, dtype):
+    """``dw_dgrad`` and ``dw_wgrad`` against their plain versions on the
+    strided cotangent (tolerances in ``_check_dw_kernels``)."""
+    x, dy, w = _dw_operands(card, B, C, H, k, stride, pads, dtype)
+    _check_dw_kernels(x, dy, w, k, stride, pads, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,H,k,stride", _B0_LAYERS)
+def test_dw_kernels_at_the_b0_layers(card, C, H, k, stride):
+    """Both kernels at each EfficientNet-B0 layer's shape, B=2, bf16: every
+    launch plan the model runs (row tiles and whole-plane groups)."""
+    from fedmlp_tpu_torch.models.layers import same_pads
+
+    pads = (same_pads(H, k, stride), same_pads(H, k, stride))
+    x, dy, w = _dw_operands(card, 2, C, H, k, stride, pads, torch.bfloat16, seed=C + H)
+    _check_dw_kernels(x, dy, w, k, stride, pads, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,k,stride", [(37, 7, 5, 1), (19, 14, 3, 2)])
+def test_dw_kernels_with_a_ragged_last_group(card, C, H, k, stride, dtype):
+    """B*C planes not a multiple of the block's group of whole planes, and C
+    not a multiple of dw's channel group: the last group is partial and the
+    runs of planes start off a 16-byte boundary."""
+    from fedmlp_tpu_torch.models.layers import same_pads
+
+    pads = (same_pads(H, k, stride), same_pads(H, k, stride))
+    Ho = (H + sum(pads[0]) - k) // stride + 1
+    elt = 2 if dtype == torch.bfloat16 else 4
+    dplan = D.dgrad_plan(3, C, H, H, Ho, Ho, k, stride, pads[0][0], pads[1][0], elt)
+    wplan = D.wgrad_plan(3, C, H, H, Ho, Ho, k, stride, pads[0][0], pads[1][0], elt)
+    assert not dplan.rows and (3 * C) % dplan.group and C % wplan.group
+    x, dy, w = _dw_operands(card, 3, C, H, k, stride, pads, dtype, seed=C)
+    _check_dw_kernels(x, dy, w, k, stride, pads, dtype)
 
 
 @pytest.mark.cuda
@@ -139,7 +182,7 @@ def test_dw_conv_pallas_backward_matches_conv2d_on_the_card(card, k, stride, H):
     assert y.dtype == torch.bfloat16
     ct = torch.randn(y.shape, generator=g, device=card).bfloat16()
     y.backward(ct)
-    assert D.LAUNCH_COUNTS == {"dw_conv_s1": 1, "dw_wgrad_s1": 1}
+    assert D.LAUNCH_COUNTS == {"dw_dgrad": 1, "dw_wgrad": 1}
 
     x2 = x.detach().bfloat16().float().requires_grad_(True)
     w2 = m.weight.detach().bfloat16().float().requires_grad_(True)
@@ -158,15 +201,39 @@ def test_dw_kernels_reject_what_they_do_not_take(card):
     version."""
     x = torch.zeros((2, 4, 8, 8), device=card)
     w = torch.zeros((4, 1, 3, 3), device=card)
+    pads = ((1, 1), (1, 1))
     with pytest.raises(ValueError, match="contiguous"):
-        D.dw_conv_s1(x.transpose(2, 3), w, ((1, 1), (1, 1)))
+        D.dw_dgrad(x.transpose(2, 3), w, 1, pads, (8, 8))
     with pytest.raises(ValueError, match="contiguous"):
-        D.dw_wgrad_s1(x, x.transpose(2, 3), 3, ((1, 1), (1, 1)))
+        D.dw_wgrad(x, x.transpose(2, 3), 3, 1, pads)
     w7 = torch.zeros((4, 1, 7, 7), device=card)
     with pytest.raises(ValueError, match="k in"):
-        D.dw_conv_s1(x, w7, ((3, 3), (3, 3)))
-    with pytest.raises(ValueError, match="match x's type and device"):
-        D.dw_conv_s1(x, w.cpu(), ((1, 1), (1, 1)))
+        D.dw_dgrad(x, w7, 1, ((3, 3), (3, 3)), (8, 8))
+    with pytest.raises(ValueError, match="stride in"):
+        D.dw_wgrad(x, torch.zeros((2, 4, 3, 3), device=card), 3, 3, pads)
+    with pytest.raises(ValueError, match="match the cotangent's type and device"):
+        D.dw_dgrad(x, w.cpu(), 1, pads, (8, 8))
+
+
+@pytest.mark.cuda
+def test_dw_kernels_reject_a_misaligned_view(card):
+    """A contiguous view that starts off a 16-byte boundary raises: the
+    kernels' vector loads need the boundary, and no slower path or plain
+    version takes the call instead."""
+    base = torch.zeros(2 * 4 * 8 * 8 + 1, device=card, dtype=torch.bfloat16)
+    x = base[1:].view(2, 4, 8, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    w = torch.zeros((4, 1, 3, 3), device=card, dtype=torch.bfloat16)
+    ok = torch.zeros((2, 4, 8, 8), device=card, dtype=torch.bfloat16)
+    pads = ((1, 1), (1, 1))
+    D.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        D.dw_dgrad(x, w, 1, pads, (8, 8))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        D.dw_wgrad(x, ok, 3, 1, pads)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        D.dw_wgrad(ok, x, 3, 1, pads)
+    assert D.LAUNCH_COUNTS == {"dw_dgrad": 0, "dw_wgrad": 0}
 
 
 @pytest.mark.cuda
