@@ -11,12 +11,14 @@ first failure:
    per source, all at once) into ``fedmlp_tpu_torch/_build/``.
 2. kernel: each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (the warp, the shear pass and the
-   normalize/flip/cutout pass at B=32, 224 px; the two depthwise kernels at
+   normalize/flip/cutout pass at B=32, 224 px, the warp also at 40° draws
+   with two images translated past the plane; the two depthwise kernels at
    the 16 depthwise layers of EfficientNet-B0; the masked BCE sum at
    [32, 8]; the fused 1x1-conv + batch-norm kernels at the probe's shapes),
    with its median time (CUDA events), the plain version's time,
    its bound and, where one PyTorch call computes the same function, that
-   call's time.
+   call's time; beside the warp and the shear pass, the method's floor (a
+   one-cycle kernel) and a fill or copy of the same output bytes.
 3. slice:  the port's FedMLP ``Trainer`` at the flagship geometry
    (EfficientNet-B0, 224 px, batch 32, 20 clients, bf16): two stage-1 rounds
    (the second harvests prototypes), one stage-2 round, then evaluation. On
@@ -155,19 +157,37 @@ def phase_kernel_warp(dev) -> dict:
                                      SIZE).contiguous()
     mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
-    got = warp.fused_warp_normalize(imgs, params, flip, mean, std)
-    ref = warp.fused_warp_normalize_ref(imgs, params, flip, mean, std)
-    torch.cuda.synchronize()
-    err = (got - ref).abs().max().item()
+    # far beyond the weak range: 40° draws, whose source bands outgrow the
+    # staged planes, and two images translated past the plane (empty bands)
+    ang40, tx40, ty40, flip40 = warp.weak_params(B, SIZE, SIZE, g, dev, degrees=40.0)
+    tx40[2] = SIZE + 40.0
+    ty40[3] = -(SIZE + 40.0)
+    params40 = warp.paeth_shift_params(torch.deg2rad(ang40), tx40, ty40, SIZE,
+                                       SIZE).contiguous()
+
     # tolerance: the kernel rounds every product and sum on its own in the
     # plain version's order, so only the normalize division may differ
-    tol = 1e-4
-    print(f"phase kernel: fused_warp_normalize B={B} S={SIZE} max_abs_err={err:.3e} "
-          f"(tol {tol:g})")
-    if not math.isfinite(err) or err > tol:
-        raise SystemExit(f"fused_warp_normalize disagrees with its plain version: {err}")
+    tol, err = 1e-4, 0.0
+    for name, (p, f) in {"weak": (params, flip), "40deg+beyond": (params40, flip40)}.items():
+        got = warp.fused_warp_normalize(imgs, p, f, mean, std)
+        ref = warp.fused_warp_normalize_ref(imgs, p, f, mean, std)
+        torch.cuda.synchronize()
+        e = (got - ref).abs().max().item()
+        err = max(err, e)
+        print(f"phase kernel: fused_warp_normalize {name} B={B} S={SIZE} "
+              f"max_abs_err={e:.3e} (tol {tol:g})")
+        if not math.isfinite(e) or e > tol:
+            raise SystemExit(f"fused_warp_normalize disagrees with its plain version: "
+                             f"{name} {e}")
 
     ms = cuda_ms(lambda: warp.fused_warp_normalize(imgs, params, flip, mean, std), 200)
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    ms_flushed = cuda_ms(lambda: warp.fused_warp_normalize(imgs, params, flip, mean, std),
+                         50, 5, flush)
+    # yardsticks by the same method: a one-cycle kernel (the method's floor)
+    # and writing the output's bytes alone
+    floor_ms = cuda_ms(lambda: torch.cuda._sleep(1), 200)
+    fill_ms = cuda_ms(lambda: got.zero_(), 200)
     plain_ms = cuda_ms(lambda: warp.fused_warp_normalize_ref(imgs, params, flip, mean,
                                                              std), 20)
     n_bytes = B * (SIZE * SIZE * 3 + 3 * SIZE * SIZE * 4 + 9 * 4 + 1)
@@ -177,9 +197,11 @@ def phase_kernel_warp(dev) -> dict:
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     flops_ms = n_flops / F32_FLOP_PER_S * 1e3
     bound_ms = max(bytes_ms, flops_ms)
-    print(f"phase kernel: fused_warp_normalize ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
-          f"library_ms=null (no single PyTorch call computes this warp)")
+    print(f"phase kernel: fused_warp_normalize ms={ms:.4f} (flushed L2 {ms_flushed:.4f}) "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
+          f"library_ms=null (no single PyTorch call computes this warp); "
+          f"floor_ms={floor_ms:.4f} (a one-cycle kernel) fill_ms={fill_ms:.4f} "
+          f"(zero_ of the f32 output)")
     return {
         "name": "fused_warp_normalize",
         "route": "cuda",
@@ -249,6 +271,9 @@ def phase_kernel_hshift(dev) -> dict:
     ms_h = cuda_ms(lambda: warp.hshift_rows(x, cases["weak"][3], 3), 50, 5, flush)
     ms_v = cuda_ms(lambda: warp.hshift_rows(x, cases["weak"][2], 2), 50, 5, flush)
     plain_ms = cuda_ms(lambda: warp.hshift_rows_ref(x, cases["weak"][3], 3), 10, 2, flush)
+    # yardstick: a copy of the plane moves the same bytes
+    y = torch.empty_like(x)
+    copy_ms = cuda_ms(lambda: y.copy_(x), 50, 5, flush)
     # a warp is (horizontal, vertical, horizontal): the mean launch of the path
     ms = (2.0 * ms_h + ms_v) / 3.0
     # the planes read once and written once, the shifts read; 4 flops a pixel
@@ -256,7 +281,8 @@ def phase_kernel_hshift(dev) -> dict:
     print(f"phase kernel: hshift_rows B={B} 3x{SIZE}x{SIZE} ms={ms:.4f} "
           f"(horizontal {ms_h:.4f}, vertical {ms_v:.4f}) plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
-          f"library_ms=null (no single PyTorch call computes this shift)")
+          f"library_ms=null (no single PyTorch call computes this shift); "
+          f"copy_ms={copy_ms:.4f} (copy_ of the plane, the same bytes)")
     return {
         "name": "hshift_rows", "route": "cuda",
         "source": "fedmlp_tpu_torch/csrc/hshift.cu",

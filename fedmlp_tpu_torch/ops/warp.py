@@ -192,6 +192,28 @@ def fused_warp_normalize_ref(images_u8, params, flip, mean, std):
     return normalize_planar(x, mean, std)
 
 
+# Output rows a block of ``csrc/fused_warp.cu`` computes (its kTileRows).
+WARP_TILE_ROWS = 8
+
+
+def warp_source_band(params: torch.Tensor, S: int, r0: int, r1: int):
+    """Source rows that output rows [r0, r1) of ``fused_warp_normalize_ref``
+    read, as the kernel stages them: (lo [B], hi [B]), rows lo..hi of the
+    (flipped) u8 image, empty where lo > hi. Pass 3 shifts along x only;
+    pass 2 at column j reads pass-1 rows y + k2(j) and y + k2(j) + 1, where
+    k2 = ⌊slope·(j − center) + offset⌋ (each step rounded, clamped as in
+    ``hshift_rows_ref``) is monotone in j, so its extremes lie at j = 0 and
+    j = S − 1; pass 1 reads only its own row. (The kernel stages the rows
+    of that range outside the plane too, as zeros.)"""
+    p = params[:, 1].to(torch.float32)
+    ends = torch.tensor([0.0, S - 1.0], dtype=torch.float32, device=p.device)
+    s = p[:, 0:1] * (ends[None, :] - p[:, 2:3]) + p[:, 1:2]
+    k = torch.floor(s).clamp(-(S + 1), S + 1).long()
+    lo = (r0 + k.min(1).values).clamp(min=0)
+    hi = (r1 + k.max(1).values).clamp(max=S - 1)
+    return lo, hi
+
+
 def _check(images_u8, params, flip):
     if images_u8.dtype != torch.uint8 or images_u8.dim() != 4 or images_u8.shape[3] != 3:
         raise ValueError(f"images must be u8 [B, S, S, 3], got {images_u8.dtype} "
@@ -213,7 +235,9 @@ def _check(images_u8, params, flip):
 def fused_warp_normalize(images_u8, params, flip, mean, std):
     """Three-shear warp + normalize of a batch: u8 NHWC [B, S, S, 3], f32
     params [B, 3, 3], flip [B] → f32 NCHW [B, 3, S, S]. A CPU batch takes the
-    plain version; a CUDA batch launches ``csrc/fused_warp.cu`` (or raises)."""
+    plain version; a CUDA batch launches ``csrc/fused_warp.cu`` (or raises),
+    whose blocks of ``WARP_TILE_ROWS`` output rows stage the rows
+    ``warp_source_band`` names."""
     _check(images_u8, params, flip)
     if images_u8.device.type == "cpu":
         return fused_warp_normalize_ref(images_u8, params, flip, mean, std)

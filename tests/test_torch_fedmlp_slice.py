@@ -30,6 +30,7 @@ from fedmlp_tpu_torch import resolve_device
 from fedmlp_tpu_torch.algos import fedmlp as tfedmlp
 from fedmlp_tpu_torch.config import Config as TConfig, DataConfig as TData, FedMLPConfig as TFed
 from fedmlp_tpu_torch.models import efficientnet as TE
+from fedmlp_tpu_torch.ops import augment as TA
 from fedmlp_tpu_torch.parallel import fl_runtime as trt
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
@@ -167,13 +168,52 @@ def test_stage2_step_matches_jax():
     _assert_clients_match(jout, tout, K, v, n_steps=(1,))
 
 
-def _trainers():
+def test_stage2_distill_step_matches_jax():
+    """One stage-2 step with the distillation term (``stage2_distill``): the
+    frozen global model's logits on the view reach both losses as
+    ``g_logits``, and the missing cells add (p − σ(g))² to the masked BCE.
+    Losses within rtol 1e-4, clients as in the other steps; the term moves
+    the loss away from the step without it."""
+    users = {0: list(range(B))}
+
+    def samples(jfd, tfd):
+        rng = np.random.RandomState(6)
+        labels = (rng.rand(1, B, C) > 0.5).astype(np.float32)
+        supmask = (rng.rand(1, B, C) > 0.4).astype(np.float32)
+        return ({"labels": jnp.asarray(labels), "supmask": jnp.asarray(supmask)},
+                {"labels": torch.from_numpy(labels), "supmask": torch.from_numpy(supmask)})
+
+    jout, jloss, tout, tloss, K, v = _run_both(
+        (jfedmlp.stage2_loss_fn, tfedmlp.stage2_loss_fn), "single", True, users,
+        samples)
+    np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=1e-4)
+    _assert_clients_match(jout, tout, K, v, n_steps=(1,))
+    # the term is far above that tolerance on this fixture: the same step's
+    # loss with and without the global logits
+    _, _, port = _models()
+    model, frozen = port(), port()
+    for m in (model, frozen):
+        m.load_state_dict(from_jax_variables(v))
+    frozen.eval()
+    _, tfd, _, _ = _federation(users)
+    x = TA.pick_weak_backend("normonly")(tfd.images[tfd.idx[0]], None, MEAN, STD)
+    _, tsample = samples(None, None)
+    sample = {n: t[0] for n, t in tsample.items()}
+    with torch.no_grad():
+        views = {"x": x, "g_logits": frozen(x)[1]}
+        args = (sample, torch.ones(B, dtype=torch.bool), {}, None, {})
+        with_term = tfedmlp.stage2_loss_fn(model, views, *args)
+        without = tfedmlp.stage2_loss_fn(model, {"x": x}, *args)
+    assert abs(float(with_term) - float(without)) > 1e-2 * abs(float(without))
+
+
+def _trainers(**fed_kw):
     # seed 7: see test_trainer_two_stage_slice_matches_jax
     kw = dict(algorithm="fedmlp", model="smallcnn", batch_size=8, base_lr=1e-3,
               n_clients=4, local_ep=1, rounds_warmup=3, eval_every=100, seed=7,
               p_pos=0.0, compute_dtype="float32", output_dir="")
     # thresholds raised so that tagging selects cells at this size
-    fed = dict(rounds_stage1=2, clean_threshold=0.2, noise_threshold=0.2)
+    fed = {**dict(rounds_stage1=2, clean_threshold=0.2, noise_threshold=0.2), **fed_kw}
     data = dict(name="synthetic", n_classes=C, image_size=IMG,
                 synthetic_train_size=96, synthetic_test_size=32,
                 augment_backend="normonly")
@@ -215,6 +255,26 @@ def test_trainer_two_stage_slice_matches_jax():
     assert set(mj) == set(mt)
     for k in mj:
         assert mt[k] == pytest.approx(mj[k], abs=1e-3), k
+
+
+def test_trainer_stage2_distill_round_matches_jax():
+    """``fedmlp.stage2_distill=True``: one stage-1 round that harvests, then
+    one stage-2 round whose local steps add the frozen global model's
+    distillation term, in both Trainers (K=4, smallcnn, 32 px, seed 7 as
+    above). Per-round client losses within rtol 1e-3, τ and prototypes
+    within atol 1e-3, the tags equal; the port built its frozen global
+    model for the term."""
+    jt, tt = _trainers(rounds_stage1=1, stage2_distill=True)
+    assert tt.global_model is not None
+    for rnd in range(2):
+        a, b = jt.run_round(rnd), tt.run_round(rnd)
+        np.testing.assert_allclose(b.client_losses, a.client_losses, rtol=1e-3)
+        np.testing.assert_allclose(tt.server_state["tao"], jt.server_state["tao"],
+                                   rtol=0, atol=1e-3)
+        np.testing.assert_allclose(tt.server_state["proto"], jt.server_state["proto"],
+                                   rtol=0, atol=1e-3)
+        np.testing.assert_array_equal(tt.server_state["tags"], jt.server_state["tags"])
+    assert int((tt.server_state["tags"] > 0).sum()) > 0
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

@@ -27,26 +27,35 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _batch(dev, B, S, seed, degrees=10.0):
+def _batch(dev, B, S, seed, degrees=10.0, beyond=False):
+    """Images 0 and 1: the identity and a forced flip; with ``beyond``,
+    images 2 and 3 translated past the plane's edge along x and y."""
     g = torch.Generator(device=dev).manual_seed(seed)
     imgs = torch.randint(0, 256, (B, S, S, 3), generator=g, device=dev,
                          dtype=torch.uint8)
     ang, tx, ty, flip = W.weak_params(B, S, S, g, dev, degrees=degrees)
     ang[0], tx[0], ty[0] = 0.0, 0.0, 0.0  # the identity
     flip[1] = True
+    if beyond:
+        tx[2] = S + 40.0
+        ty[3] = -(S + 40.0)
     params = W.paeth_shift_params(torch.deg2rad(ang), tx, ty, S, S).contiguous()
     return imgs, params, flip
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,S,degrees", [(8, 224, 10.0), (3, 97, 10.0), (4, 64, 40.0)])
+@pytest.mark.parametrize("B,S,degrees", [(8, 224, 10.0), (3, 97, 10.0), (4, 64, 40.0),
+                                          (32, 224, 40.0)])
 def test_fused_warp_kernel_matches_plain_version(card, B, S, degrees):
     """atol 1e-4 on the normalized scale; in practice bitwise, since the
     kernel rounds every product and sum on its own in the plain version's
-    order. The 40° case has shear slopes far beyond the weak range, where
+    order. The 40° cases have shear slopes far beyond the weak range, where
     the kernel must stay exact (it computes each row's shift, no tap
-    bound)."""
-    imgs, params, flip = _batch(card, B, S, seed=S, degrees=degrees)
+    bound): their source bands outgrow the staged planes, and two images
+    are translated past the plane (an empty band). S = 97 stages byte by
+    byte and stores a ragged run at the end of each row."""
+    imgs, params, flip = _batch(card, B, S, seed=S, degrees=degrees,
+                                beyond=degrees > 10.0)
     W.reset_launch_counts()
     got = W.fused_warp_normalize(imgs, params, flip, MEAN, STD)
     want = W.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD)

@@ -135,3 +135,74 @@ def test_fused_warp_rejects_bad_inputs(bad):
         imgs = torch.zeros((2, 8, 6, 3), dtype=torch.uint8)
     with pytest.raises(ValueError):
         W.fused_warp_normalize(imgs, params, flip, MEAN, STD)
+
+
+def _band_params(S, case, rng):
+    """Shear params of three images: weak-range draws, 40° draws (one at
+    each end of the range), or translations past the plane's edge."""
+    n = 3
+    ang = rng.uniform(-10, 10, n)
+    tx = rng.uniform(-0.02, 0.02, n) * S
+    ty = rng.uniform(-0.02, 0.02, n) * S
+    if case == "40deg":
+        ang = np.array([40.0, -40.0, rng.uniform(-40, 40)])
+    elif case == "beyond":
+        tx[0], ty[1], tx[2], ty[2] = S + 30.0, -(S + 30.0), -1.5 * S, 0.6 * S
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    return W.paeth_shift_params(torch.deg2rad(t(ang)), t(tx), t(ty), S, S).contiguous()
+
+
+@pytest.mark.parametrize("case", ["weak", "40deg", "beyond"])
+@pytest.mark.parametrize("S", [224, 97])
+def test_warp_source_band_holds_every_row_the_plain_version_reads(S, case):
+    """For every tile of ``WARP_TILE_ROWS`` output rows: (1) every pass-1
+    row that pass 2 taps for those rows, through the pass-3 columns they
+    tap, lies in ``warp_source_band`` (the kernel stages that band and reads
+    nothing outside it); (2) ``fused_warp_normalize_ref`` gives the tile's
+    rows bit for bit when every source row outside the band is replaced by
+    other bytes. At the weak range the band stays within the tile plus the
+    sine of 10° of the side and two rows."""
+    rng = np.random.RandomState(S + len(case))
+    params = _band_params(S, case, rng)
+    n = params.shape[0]
+    flip = torch.tensor([False, True, False])
+    imgs = torch.from_numpy(rng.randint(0, 256, (n, S, S, 3), np.uint8))
+    want = W.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD)
+
+    def shear(q, at):  # the kernel's k for pass params q [n, 3] at positions at
+        s = q[:, 0:1] * (at[None, :] - q[:, 2:3]) + q[:, 1:2]
+        return torch.floor(s).clamp(-(S + 1), S + 1).long()
+
+    line = torch.arange(S, dtype=torch.float32)
+    k2, k3 = shear(params[:, 1], line), shear(params[:, 2], line)
+    tiles = [(r0, min(S, r0 + W.WARP_TILE_ROWS)) for r0 in range(0, S, W.WARP_TILE_ROWS)]
+    masked, rows_of = [], []
+    for r0, r1 in tiles:
+        lo, hi = W.warp_source_band(params, S, r0, r1)
+        if case == "weak":
+            spread = math.ceil(math.sin(math.radians(10.0)) * (S - 1))
+            assert int((hi - lo).max()) + 1 <= W.WARP_TILE_ROWS + spread + 2
+        for i in range(n):
+            # (1) the rows the taps reach: pass-3 columns j of rows y, then
+            # pass-1 rows y + k2[j] and y + k2[j] + 1 inside the plane
+            ys = torch.arange(r0, r1)
+            js = torch.arange(S)[None, :] + k3[i, ys][:, None]
+            js = torch.cat([js, js + 1], 1)
+            inside = (js >= 0) & (js < S)
+            tapped = ys[:, None] + k2[i, js.clamp(0, S - 1)]
+            tapped = torch.cat([tapped[inside], tapped[inside] + 1])
+            tapped = tapped[(tapped >= 0) & (tapped < S)]
+            if tapped.numel():
+                assert int(tapped.min()) >= int(lo[i]) and int(tapped.max()) <= int(hi[i])
+            # (2) other bytes outside the band
+            out = torch.ones(S, dtype=torch.bool)
+            out[max(int(lo[i]), 0):int(hi[i]) + 1] = False
+            img = imgs[i].clone()
+            img[out] = torch.from_numpy(rng.randint(0, 256, (int(out.sum()), S, 3), np.uint8))
+            masked.append(img)
+            rows_of.append((i, r0, r1))
+    got = W.fused_warp_normalize_ref(
+        torch.stack(masked), params.repeat(len(tiles), 1, 1),
+        flip.repeat(len(tiles)), MEAN, STD)
+    for t, (i, r0, r1) in enumerate(rows_of):
+        assert torch.equal(got[t, :, r0:r1], want[i, :, r0:r1]), (i, r0)
