@@ -50,9 +50,10 @@ first failure:
    rounds: a FedAvg warm-up, a round that splits the clients with the GMM on
    round 0's losses and aggregates with DaAgg, and a round that trains the
    clean and the noisy clients apart. Only the depth (rounds) is cut.
-9. profile, profile_strong (only when asked for): where a stage-1 round's
-   device time goes, for both depthwise backends; what the strong view costs
-   a FixMatch step.
+9. profile, profile_strong, profile_convbn (only when asked for): where a
+   stage-1 round's device time goes, for both depthwise backends; what the
+   strong view costs a FixMatch step; how the conv-BN wrappers' device time
+   divides between their launches.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -63,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -434,6 +436,29 @@ def _ulp(v, dtype):
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=1e-30))) - bits)
 
 
+def _reordered_sum_bound(x, w):
+    """Per element of x·w [M, Co]: 2·Ci·2⁻²⁴·Σ_k|x_k·w_k|, how far an f32
+    sum of the Ci products in another order than the plain version's may
+    lie from it. Each of the Ci − 1 additions rounds (the tensor cores may
+    truncate) by at most 2⁻²³ of a partial sum, itself at most Σ_k|x_k·w_k|.
+    The TPU's MXU sums in its own order too; the CPU tests hold the plain
+    version to JAX within the same bound."""
+    from fedmlp_tpu_torch.ops import fused_conv_bn as CB
+
+    return 2.0 * x.shape[1] * 2.0 ** -24 * CB._product_ref(x.abs(), w.abs())
+
+
+def _y_excess_ulps(y, yr, x, w, dtype):
+    """|y − yr| in ulps of ``dtype`` at yr, beyond the reordered-sum bound
+    for bf16 (the tensor-core route); f32 keeps the plain version's order,
+    so its bound is 0. The kernel's y passes with at most one ulp, on at
+    most 1% of the elements."""
+    err = (y.float() - yr.float()).abs()
+    if dtype == torch.bfloat16:
+        err = (err - _reordered_sum_bound(x, w)).clamp(min=0.0)
+    return err / _ulp(yr.float(), dtype)
+
+
 def _conv_bn_case(dev, M, Ci, Co, dtype, act: str = "swish") -> dict:
     """Both conv-BN kernels against their plain versions on one shape, each
     called twice; the tolerances are stated in ``phase_kernel_conv_bn``.
@@ -456,16 +481,19 @@ def _conv_bn_case(dev, M, Ci, Co, dtype, act: str = "swish") -> dict:
     yf = CB._product_ref(x, w)
     abs_sum, sq_sum = float(yf.abs().sum()), float((yf * yf).sum())
     y_err = (y.float() - yr.float()).abs()
-    y_ulps = y_err / _ulp(yr.float(), dtype)
+    y_ulps = _y_excess_ulps(y, yr, x, w, dtype)
     _, _, mul, add = CB.fold_batch_norm(s, ss, M, scale, bias, 1e-3)
     _, _, mulr, addr = CB.fold_batch_norm(sr, ssr, M, scale, bias, 1e-3)
     # z = y·mul + add differs by what the two sets of statistics make of it
     # and by one f32 rounding of the product y·mul and one of the sum on each
-    # side (the product's may be far above z's where the sum cancels); out
-    # moves by at most the activation's slope (swish: under 1.1) times that
+    # side (the product's may be far above z's where the sum cancels), and
+    # in bf16 by the reordered sum's bound on y times |mul|; out moves by at
+    # most the activation's slope (swish: under 1.1) times that
     ym = yf * mulr
     dz = (yf.abs() * (mul - mulr).abs() + (add - addr).abs()
           + _ulp(ym, torch.float32) + _ulp(ym + addr, torch.float32))
+    if dtype == torch.bfloat16:
+        dz = dz + _reordered_sum_bound(x, w) * mulr.abs()
     spread = (1.1 if act == "swish" else 1.0) * dz
     out_err = (out.float() - outr.float()).abs()
     # in ulps of the larger of the two values (the plain version's may be 0)
@@ -496,18 +524,22 @@ def phase_kernel_conv_bn(dev) -> list:
     """``conv1x1_bn_stats`` and ``conv1x1_bn_act_2pass`` against their plain
     versions at the probe's three shapes (EfficientNet-B0's pointwise
     expansions at B=32, 224 px) in bf16 and at the third in f32. Tolerances:
-    y within one ulp of its type (the kernel sums each element's products in
-    the plain version's order, so it should be equal), at most 1% of the
-    elements one ulp off; sum and sum of squares within 1e-5 relative to
-    Σ|y| and Σy², mean and var the same over M; out within one bf16 ulp
-    (four f32 ulps: the sigmoid's exp and the last rounding) of the larger
-    of the two values, beyond 1.1 (the swish's largest slope) times |y|·Δmul
-    + Δadd + one f32 ulp of y·mul and one of z, what the two sets of
-    statistics and their roundings make of z = y·mul + add, at most 1% of
-    the elements off; equal bits on a repeat. Times are sums over the three bf16 shapes,
-    every run from a flushed L2; the library column is the unfused chain of
-    the probe (``torch.matmul``, then the statistics, or the statistics,
-    batch norm and swish)."""
+    y within one ulp of its type beyond the reordered-sum bound (bf16, where
+    the tensor cores sum in their own order: ``_reordered_sum_bound``) or of
+    the plain version's y (f32, summed in the plain version's order, so it
+    should be equal), at most 1% of the elements off; sum and sum of
+    squares within 1e-5 relative to Σ|y| and Σy², mean and var the same
+    over M; out within one bf16 ulp (four f32 ulps: the sigmoid's exp and
+    the last rounding) of the larger of the two values, beyond 1.1 (the
+    swish's largest slope) times |y|·Δmul + Δadd + one f32 ulp of y·mul and
+    one of z, what the two sets of statistics and their roundings make of
+    z = y·mul + add, plus in bf16 the reordered-sum bound times |mul|, at
+    most 1% of the elements off; equal bits on a repeat. Times are sums
+    over the three bf16 shapes, every run from a flushed L2; the library
+    column is the unfused chain of the probe (``torch.matmul``, then the
+    statistics, or the statistics, batch norm and swish). Per shape, two
+    yardsticks by the same method: ``torch.matmul(x, w)`` alone (the
+    tensor-core product that writes y) and a ``copy_`` of y's bytes."""
     from fedmlp_tpu_torch.ops import fused_conv_bn as CB
     from fedmlp_tpu_torch.tools.probe_fused_conv_bn import SHAPES, candidates
 
@@ -530,8 +562,6 @@ def phase_kernel_conv_bn(dev) -> list:
         stats["conv1x1_bn_stats"]["err"] = max(stats["conv1x1_bn_stats"]["err"], res["y_err"])
         stats["conv1x1_bn_act_2pass"]["err"] = max(stats["conv1x1_bn_act_2pass"]["err"],
                                                    res["out_err"])
-        if dtype != torch.bfloat16:
-            continue
         g = torch.Generator(device=dev)
         g.manual_seed(M)
         x = torch.randn((M, Ci), generator=g, device=dev).to(dtype)
@@ -539,11 +569,17 @@ def phase_kernel_conv_bn(dev) -> list:
         scale = torch.rand((Co,), generator=g, device=dev) + 0.5
         bias = torch.randn((Co,), generator=g, device=dev)
         unfused, fused, unfusedfull, fused2p = candidates(x, w, scale, bias)
+        ybuf = torch.empty((M, Co), dtype=dtype, device=dev)
+        ysrc = torch.ones((M, Co), dtype=dtype, device=dev)
+        matmul_ms = cuda_ms(lambda: torch.matmul(x, w), 20, 3, flush)
+        copy_ms = cuda_ms(lambda: ybuf.copy_(ysrc), 20, 3, flush)
         e = x.element_size()
         # x and w read once, y (or out) written once, the [Co] vectors; the
-        # product's 2*M*Ci*Co operations at the bf16 tensor-core rate
+        # product's 2*M*Ci*Co operations at the bf16 tensor-core rate (f32:
+        # the CUDA cores' rate)
         n_bytes = (M * Ci + Ci * Co + M * Co) * e + 4 * Co * 4
-        flops_ms = 2.0 * M * Ci * Co / BF16_FLOP_PER_S * 1e3
+        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+        flops_ms = 2.0 * M * Ci * Co / rate * 1e3
         for kname, fn, plain, library in (
                 ("conv1x1_bn_stats", fused, lambda: CB.conv1x1_bn_stats_ref(x, w), unfused),
                 ("conv1x1_bn_act_2pass", fused2p,
@@ -553,9 +589,12 @@ def phase_kernel_conv_bn(dev) -> list:
             plain_ms = cuda_ms(plain, 3, 1, flush)
             library_ms = cuda_ms(library, 20, 3, flush)
             bound_ms = max(n_bytes / HBM_BYTES_PER_S * 1e3, flops_ms)
-            print(f"phase kernel: {kname} [{M}, {Ci}]x[{Ci}, {Co}] bf16 ms={ms:.4f} "
+            print(f"phase kernel: {kname} [{M}, {Ci}]x[{Ci}, {Co}] {tname} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"bound_ms={bound_ms:.5f} ({n_bytes / 1e6:.2f} MB) share={bound_ms / ms:.3f}")
+                  f"bound_ms={bound_ms:.5f} ({n_bytes / 1e6:.2f} MB) share={bound_ms / ms:.3f} "
+                  f"matmul_ms={matmul_ms:.4f} copy_ms={copy_ms:.4f}")
+            if dtype != torch.bfloat16:
+                continue  # the sums are over the bf16 shapes
             st["ms"] += ms
             st["plain_ms"] += plain_ms
             st["library_ms"] += library_ms
@@ -1299,6 +1338,46 @@ _PATH_KERNELS = {
 }
 
 
+def phase_profile_convbn(dev, card: str) -> None:
+    """How the conv-BN wrappers' device time divides between their launches
+    (``conv1x1_bn_stats``: the product pass and the finalize;
+    ``conv1x1_bn_act_2pass``: the statistics pass, the finalize with the
+    fold, the normalize pass): device µs a launch under ``torch.profiler``,
+    5 calls of each wrapper at each of the probe's bf16 shapes, every call
+    from a flushed L2."""
+    from fedmlp_tpu_torch.ops import fused_conv_bn as CB
+    from fedmlp_tpu_torch.tools.probe_fused_conv_bn import SHAPES
+
+    flush = torch.empty(128 * 1024 * 1024, dtype=torch.uint8, device=dev)
+    for M, Ci, Co in SHAPES:
+        g = torch.Generator(device=dev)
+        g.manual_seed(M)
+        x = torch.randn((M, Ci), generator=g, device=dev).to(torch.bfloat16)
+        w = torch.randn((Ci, Co), generator=g, device=dev).to(torch.bfloat16)
+        scale = torch.rand((Co,), generator=g, device=dev) + 0.5
+        bias = torch.randn((Co,), generator=g, device=dev)
+        fns = (lambda: CB.conv1x1_bn_stats(x, w),
+               lambda: CB.conv1x1_bn_act_2pass(x, w, scale, bias))
+        for fn in fns:  # the launch plans, outside the profile
+            fn()
+
+        def run():
+            for _ in range(5):
+                for fn in fns:
+                    flush.zero_()
+                    fn()
+
+        _, by_name, counts = profiled(run)
+        parts = []
+        for name, us in by_name.items():
+            m = re.search(r"((?:conv1x1|stats_finalize)\w*)<([^<>()]*)>", name)
+            if m:
+                parts.append(f"{m.group(1)}<{m.group(2)}>={us / counts[name]:.2f}"
+                             f"x{counts[name]}")
+        print(f"phase profile_convbn: [{M}, {Ci}]x[{Ci}, {Co}] bf16 device us a launch, "
+              f"flushed L2: {' '.join(sorted(parts))} [{card}]")
+
+
 def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -1306,7 +1385,7 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro",
                     help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
-                         "probe_convbn,slice_fednoro,profile,profile_strong")
+                         "probe_convbn,slice_fednoro,profile,profile_strong,profile_convbn")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1351,6 +1430,8 @@ def main(argv=None) -> int:
         phase_profile(dev, card)
     if "profile_strong" in phases:
         phase_profile_strong(dev, card)
+    if "profile_convbn" in phases:
+        phase_profile_convbn(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ computes in float32.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -100,6 +101,20 @@ def check_ported(cfg: Config) -> None:
         raise UnportedConfigError("; ".join(bad))
 
 
+def partition_cache_path(cfg: Config, train_ds: ArrayDataset) -> Optional[str]:
+    """``<output_dir>/{iid,non-iid}-dictusers/<tag>.npy``, the file the JAX
+    package's ``Trainer`` reads and writes (a pickled dict through
+    ``np.save``), or None without an output directory. The tag holds the
+    dataset's name and size, the seed, the client count and, non-iid, the
+    Dirichlet alpha."""
+    if not cfg.output_dir:
+        return None
+    tag = (f"{train_ds.name}_{len(train_ds)}_{cfg.seed}_{cfg.n_clients}"
+           + ("" if cfg.iid else f"_{cfg.alpha_dirichlet}"))
+    sub = "iid-dictusers" if cfg.iid else "non-iid-dictusers"
+    return os.path.join(cfg.output_dir, sub, tag + ".npy")
+
+
 @dataclass
 class RoundRecord:
     round: int
@@ -138,19 +153,27 @@ class Trainer:
             raise ValueError(f"dataset has {self.train_ds.n_classes} classes, "
                              f"config {cfg.data.n_classes}")
 
-        # ---- partition (computed afresh; the JAX package's on-disk cache
-        # of the same partition is not kept)
+        # ---- partition, with the JAX package's on-disk cache: the same
+        # file (reference: dataset/dataset.py:168-180), so two runs over one
+        # output directory train on one partition, whichever package runs
         if self.dict_users is None:
+            cache = partition_cache_path(cfg, self.train_ds)
             if cfg.algorithm == "centralized" or cfg.n_clients == 1:
                 self.dict_users = {0: list(range(len(self.train_ds)))}
-            elif cfg.iid:
-                self.dict_users = iid_sampling(len(self.train_ds), cfg.n_clients,
-                                               cfg.seed)
+            elif cache and os.path.exists(cache):
+                self.dict_users = np.load(cache, allow_pickle=True).item()
             else:
-                self.dict_users = non_iid_dirichlet_sampling(
-                    self.train_ds.targets, cfg.n_classes, 1.0, cfg.n_clients,
-                    cfg.seed, cfg.alpha_dirichlet,
-                )
+                if cfg.iid:
+                    self.dict_users = iid_sampling(len(self.train_ds), cfg.n_clients,
+                                                   cfg.seed)
+                else:
+                    self.dict_users = non_iid_dirichlet_sampling(
+                        self.train_ds.targets, cfg.n_classes, 1.0, cfg.n_clients,
+                        cfg.seed, cfg.alpha_dirichlet,
+                    )
+                if cache:
+                    os.makedirs(os.path.dirname(cache), exist_ok=True)
+                    np.save(cache, self.dict_users, allow_pickle=True)
         self.n_clients = len(self.dict_users)
 
         # ---- label hiding (reference: main.py:58-66) ----

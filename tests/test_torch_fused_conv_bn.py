@@ -146,3 +146,46 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         F.conv1x1_bn_stats(x, torch.zeros((4, 3), dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         F.conv1x1_bn_stats(x.double(), torch.zeros((4, 3), dtype=torch.float64))
+
+
+def test_card_check_takes_a_reordered_bf16_sum_and_refuses_a_dropped_term():
+    """chip_smoke.py's bf16 y check (``_y_excess_ulps``: one bf16 ulp beyond
+    the reordered-sum bound 2·Ci·2⁻²⁴·Σ_k|x_k·w_k|, on at most 1% of the
+    elements), run on the CPU: the product summed over k in reverse order
+    passes it; the product without its k = 0 term fails it."""
+    import chip_smoke
+
+    rs = np.random.RandomState(3)
+    M, Ci, Co = 256, 24, 40
+    x = torch.from_numpy(rs.randn(M, Ci).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rs.randn(Ci, Co).astype(np.float32)).to(torch.bfloat16)
+    y = F._product_ref(x, w)
+    yr = y.to(torch.bfloat16)
+    xf, wf = x.float(), w.float()
+    rev = torch.zeros((M, Co))
+    for k in reversed(range(Ci)):
+        rev = rev + xf[:, k:k + 1] * wf[k]
+    assert not torch.equal(rev, y)  # another order, other roundings
+    dropped = F._product_ref(x[:, 1:], w[1:])
+
+    def passes(got):
+        u = chip_smoke._y_excess_ulps(got.to(torch.bfloat16), yr, x, w, torch.bfloat16)
+        return float(u.max()) <= 1.0 and float((u > 0).float().mean()) <= 0.01
+
+    assert passes(rev)
+    assert not passes(dropped)
+    # f32 keeps the plain version's order: no bound, so the reordered sum
+    # is held to one f32 ulp on at most 1% of the elements, and fails that
+    u32 = chip_smoke._y_excess_ulps(rev, y, xf, wf, torch.float32)
+    assert float((u32 > 0).float().mean()) > 0.01
+
+
+def test_launches_into_a_given_tensor_refuse_cpu_tensors():
+    """``*_into`` write into the caller's tensor on the card; with CPU tensors
+    they raise rather than take the plain version."""
+    x = torch.zeros((8, 4))
+    w = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        F.conv1x1_bn_stats_into(x, w, torch.empty((8, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        F.conv1x1_bn_act_2pass_into(x, w, torch.ones(3), torch.zeros(3), torch.empty((8, 3)))

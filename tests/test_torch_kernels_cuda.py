@@ -370,14 +370,20 @@ def test_new_kernels_reject_what_they_do_not_take(card):
 @pytest.mark.parametrize("M,Ci,Co,dtype", [
     (1000, 16, 96, torch.bfloat16), (63, 24, 144, torch.float32),
     (1, 3, 50, torch.bfloat16), (6272, 80, 480, torch.bfloat16),
-    (4097, 80, 200, torch.float32), (100352, 24, 144, torch.bfloat16)])
+    (4097, 80, 200, torch.float32), (100352, 24, 144, torch.bfloat16),
+    # bf16, the tensor-core route: Ci not a multiple of 16 (3: rows of x
+    # not 16-byte units, no cp.async), Co not a multiple of 8, Ci = 256,
+    # Co = 480 (slabs of 160 columns), M = 1, 63, 4097, 100352
+    (63, 24, 97, torch.bfloat16), (4097, 40, 50, torch.bfloat16),
+    (1000, 3, 97, torch.bfloat16), (4097, 256, 480, torch.bfloat16),
+    (1, 256, 96, torch.bfloat16), (100352, 40, 480, torch.bfloat16)])
 def test_conv_bn_kernels_match_plain_versions(card, M, Ci, Co, dtype, act):
     """Ragged M (not a multiple of the 64-row tile), Co not a multiple of the
-    96-column block, both activations, each kernel called twice; the checks
+    block's columns, both activations, each kernel called twice; the checks
     and tolerances of chip_smoke.py's kernel phase (``_conv_bn_case``): y
-    within one ulp, sums within 1e-5 relative, out within one bf16 ulp or
-    four f32 ulps beyond what the two sets of statistics make of it, equal
-    bits on a repeat."""
+    within one ulp (bf16: beyond the reordered-sum bound), sums within 1e-5
+    relative, out within one bf16 ulp or four f32 ulps beyond what the two
+    sets of statistics make of it, equal bits on a repeat."""
     import chip_smoke
 
     CB.reset_launch_counts()
@@ -401,3 +407,32 @@ def test_conv_bn_kernels_reject_what_they_do_not_take(card):
         CB.conv1x1_bn_stats(x, w.cpu())
     with pytest.raises(ValueError, match="scale"):
         CB.conv1x1_bn_act_2pass(x, w, torch.ones(7, device=card), torch.zeros(8, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Ci,Co", [(40000, 24, 97), (40001, 16, 96), (6271, 80, 480),
+                                     (130, 256, 480)])
+def test_conv_bn_bf16_kernels_write_nothing_past_m(card, M, Ci, Co):
+    """y and out land in views of buffers with sentinel rows past M. Whole-row
+    tiles (M ≥ 264 tiles of 64 and Co ≤ 160: one block owns all Co
+    columns, so a full tile leaves in one bulk store) with a ragged last
+    tile, Co odd or a multiple of 8; column slabs (Co = 480, or few tiles):
+    the rows past M keep their bits, and the rows before equal what the
+    wrappers return."""
+    g = torch.Generator(device=card)
+    g.manual_seed(M)
+    x = torch.randn((M, Ci), generator=g, device=card).to(torch.bfloat16)
+    w = torch.randn((Ci, Co), generator=g, device=card).to(torch.bfloat16)
+    scale = torch.rand((Co,), generator=g, device=card) + 0.5
+    bias = torch.randn((Co,), generator=g, device=card)
+    y_buf = torch.full((M + 64, Co), -7.0, dtype=torch.bfloat16, device=card)
+    out_buf = torch.full((M + 64, Co), -7.0, dtype=torch.bfloat16, device=card)
+    s_into, ss_into = CB.conv1x1_bn_stats_into(x, w, y_buf[:M])
+    mean_into, var_into = CB.conv1x1_bn_act_2pass_into(x, w, scale, bias, out_buf[:M])
+    torch.cuda.synchronize()
+    assert bool((y_buf[M:] == -7.0).all()) and bool((out_buf[M:] == -7.0).all())
+    y, s, ss = CB.conv1x1_bn_stats(x, w)
+    out, mean, var = CB.conv1x1_bn_act_2pass(x, w, scale, bias)
+    assert torch.equal(y_buf[:M], y) and torch.equal(out_buf[:M], out)
+    assert torch.equal(s_into, s) and torch.equal(ss_into, ss)
+    assert torch.equal(mean_into, mean) and torch.equal(var_into, var)
