@@ -6,7 +6,9 @@ whose name this module keeps).
   normalization, one read and one write a pixel (``csrc/preproc.cu``).
 * ``bce_with_logits_masked_sum`` — Σ mask·BCE-with-logits(pos_weight) over
   [B, C] as one reduction (``csrc/bce.cu``), a ``torch.autograd.Function``
-  with the closed-form gradient for the logits.
+  whose backward is the closed-form gradient for the logits,
+  ``bce_with_logits_masked_grad`` (a kernel of the same source): one launch
+  each way.
 
 Each wrapper takes its plain PyTorch version (``*_ref``) for CPU tensors and
 launches its kernel for CUDA tensors, or raises; there is no fallback.
@@ -20,12 +22,13 @@ import torch
 import torch.nn.functional as F
 
 from fedmlp_tpu_torch.ops import _build
-from fedmlp_tpu_torch.ops.warp import norm_constants
+from fedmlp_tpu_torch.ops.warp import norm_constants_f32
 
 FILL_GRAY = 127.0  # CutoutAbs fill (utils/FixMatch.py:57)
 
 # Launches of each kernel wrapper since the last reset_launch_counts().
-LAUNCH_COUNTS = {"normalize_flip_cutout": 0, "bce_with_logits_masked_sum": 0}
+LAUNCH_COUNTS = {"normalize_flip_cutout": 0, "bce_with_logits_masked_sum": 0,
+                 "bce_with_logits_masked_grad": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,13 +74,27 @@ def _check_preproc(images_u8, flips, boxes):
                              f"{images_u8.device}")
 
 
+def normalize_flip_cutout_plan(images_u8, out, mean, std):
+    """Launch plan of ``csrc/preproc.cu`` for a batch and its output buffer:
+    (vec4, means, stds). ``vec4``: four pixels a thread, which needs W % 4
+    == 0 and both base pointers 16-byte aligned (any other batch runs one
+    pixel a thread); the constants are the f32 products 255·mean_c and
+    255·std_c of the plain version (``norm_constants_f32``), from which the
+    kernel builds its gray-level table."""
+    W = images_u8.shape[2]
+    vec4 = W % 4 == 0 and images_u8.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    m, s = norm_constants_f32(mean, std)
+    return vec4, m, s
+
+
 def normalize_flip_cutout(images_u8, flips, boxes, mean, std):
     """images u8 [B, H, W, 3]; flips i32 [B] (> 0: mirror horizontally);
     boxes i32 [B, 4] rows of (x0, y0, x1, y1) in output coordinates, filled
     with 127 before normalizing (a zero box disables the cutout) → f32
     [B, H, W, 3], ((x/255) − mean)/std. ``flips`` or ``boxes`` may be None:
     no flip, no box. A CPU batch takes the plain version; a CUDA batch
-    launches ``csrc/preproc.cu`` (or raises)."""
+    launches ``csrc/preproc.cu`` (or raises), equal to the plain version's
+    bits."""
     _check_preproc(images_u8, flips, boxes)
     if images_u8.device.type == "cpu":
         return normalize_flip_cutout_ref(images_u8, flips, boxes, mean, std)
@@ -90,13 +107,16 @@ def normalize_flip_cutout(images_u8, flips, boxes, mean, std):
     out = torch.empty((B, H, W, 3), dtype=torch.float32, device=images_u8.device)
     if out.numel() == 0:
         return out
+    if B * H * W >= 2**31:
+        raise ValueError(f"normalize_flip_cutout: {B * H * W} pixels exceed the "
+                         "kernel's 32-bit index")
     lib = _preproc_lib()
-    m, s = norm_constants(mean, std)
+    vec4, m, s = normalize_flip_cutout_plan(images_u8, out, mean, std)
     with torch.cuda.device(images_u8.device):  # the launch goes to the current device
         err = lib.normalize_flip_cutout_u8(
             images_u8.data_ptr(), None if flips is None else flips.data_ptr(),
             None if boxes is None else boxes.data_ptr(), out.data_ptr(), B, H, W,
-            *m, *s, torch.cuda.current_stream().cuda_stream)
+            *m, *s, int(vec4), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"normalize_flip_cutout launch failed: CUDA error {err}")
     LAUNCH_COUNTS["normalize_flip_cutout"] += 1
@@ -108,7 +128,7 @@ def _preproc_lib():
     if not hasattr(lib, "_typed"):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.normalize_flip_cutout_u8.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                                 cf, cf, cf, cf, cf, cf, vp]
+                                                 cf, cf, cf, cf, cf, cf, ci, vp]
         lib.normalize_flip_cutout_u8.restype = ci
         lib._typed = True
     return lib
@@ -150,18 +170,25 @@ def bce_with_logits_masked_sum_ref(logits, labels, pos_weight, mask):
     return (elem * mask).sum()
 
 
+def _check_kernel_operands(name, logits, labels):
+    """What both BCE kernels need beyond ``_broadcast_operands``: a CUDA
+    device and contiguous logits and labels."""
+    if logits.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {logits.device}")
+    for tname, t in (("logits", logits), ("labels", labels)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+
+
 def _bce_forward(logits, labels, pos_weight, mask):
     pw, m = _broadcast_operands(logits, labels, pos_weight, mask)
     if logits.device.type == "cpu":
         return bce_with_logits_masked_sum_ref(logits, labels, pw, m)
-    if logits.device.type != "cuda":
-        raise ValueError(f"bce_with_logits_masked_sum: unsupported device {logits.device}")
-    for tname, t in (("logits", logits), ("labels", labels)):
-        if not t.is_contiguous():
-            raise ValueError(f"bce_with_logits_masked_sum: {tname} must be contiguous")
-    out = torch.zeros((), dtype=torch.float32, device=logits.device)
+    _check_kernel_operands("bce_with_logits_masked_sum", logits, labels)
     if logits.numel() == 0:
-        return out
+        return torch.zeros((), dtype=torch.float32, device=logits.device)
+    # the kernel writes out on every path: no fill launch before it
+    out = torch.empty((), dtype=torch.float32, device=logits.device)
     lib = _bce_lib()
     B, C = logits.shape
     blocks = lib.bce_masked_sum_blocks(B * C)
@@ -187,8 +214,52 @@ def _bce_lib():
         lib.bce_masked_sum_f32.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci,
                                            ll, ll, ll, ll, vp]
         lib.bce_masked_sum_f32.restype = ci
+        lib.bce_masked_grad_f32.argtypes = [vp, vp, vp, vp, vp, vp, ll, ci,
+                                            ll, ll, ll, ll, vp]
+        lib.bce_masked_grad_f32.restype = ci
         lib._typed = True
     return lib
+
+
+def bce_with_logits_masked_grad_ref(g, logits, labels, pos_weight, mask):
+    """Plain PyTorch version of the gradient in the logits: g · (−pw·y·(1 − p)
+    + (1 − y)·p) · mask with p = σ(x), the JAX package's closed-form VJP."""
+    p = torch.sigmoid(logits)
+    # d/dx [−pw·y·log σ − (1 − y)·log(1 − σ)] = −pw·y·(1 − p) + (1 − y)·p
+    grad = (-pos_weight * labels * (1.0 - p) + (1.0 - labels) * p) * mask
+    return g * grad
+
+
+def bce_with_logits_masked_grad(g, logits, labels, pos_weight, mask):
+    """d/d logits of ``bce_with_logits_masked_sum`` times the cotangent ``g``
+    (f32 scalar) → f32 [B, C]. CPU tensors take the plain version; CUDA
+    tensors launch ``csrc/bce.cu``'s gradient kernel (or raise), which reads
+    ``g`` on the device (no host sync) and rounds in the plain version's
+    order."""
+    pw, m = _broadcast_operands(logits, labels, pos_weight, mask)
+    if g.dim() != 0 or g.dtype != torch.float32 or g.device != logits.device:
+        raise ValueError(f"bce_with_logits_masked_grad: g must be an f32 scalar on "
+                         f"{logits.device}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if logits.device.type == "cpu":
+        return bce_with_logits_masked_grad_ref(g, logits, labels, pw, m)
+    _check_kernel_operands("bce_with_logits_masked_grad", logits, labels)
+    dx = torch.empty_like(logits)
+    if logits.numel() == 0:
+        return dx
+    if logits.numel() >= 2**31:
+        raise ValueError(f"bce_with_logits_masked_grad: {logits.numel()} elements "
+                         "exceed the kernel's 32-bit index")
+    lib = _bce_lib()
+    B, C = logits.shape
+    with torch.cuda.device(logits.device):  # the launch goes to the current device
+        err = lib.bce_masked_grad_f32(
+            g.data_ptr(), logits.data_ptr(), labels.data_ptr(), pw.data_ptr(),
+            m.data_ptr(), dx.data_ptr(), B, C, *pw.stride(), *m.stride(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bce_with_logits_masked_grad launch failed: CUDA error {err}")
+    LAUNCH_COUNTS["bce_with_logits_masked_grad"] += 1
+    return dx
 
 
 class _BceMaskedSum(torch.autograd.Function):
@@ -199,18 +270,19 @@ class _BceMaskedSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
         logits, labels, pos_weight, mask = ctx.saved_tensors
-        p = torch.sigmoid(logits)
-        # d/dx [−pw·y·log σ − (1 − y)·log(1 − σ)] = −pw·y·(1 − p) + (1 − y)·p
-        grad = (-pos_weight * labels * (1.0 - p) + (1.0 - labels) * p) * mask
-        return g * grad, None, None, None
+        return (bce_with_logits_masked_grad(g, logits, labels, pos_weight, mask),
+                None, None, None)
 
 
 def bce_with_logits_masked_sum(logits, labels, pos_weight, mask):
     """Σ_{b,c} mask·(−pos_weight·y·log σ(x) − (1 − y)·log σ(−x)) → f32
     scalar, without the [B, C] loss tensor. logits, labels f32 [B, C];
     pos_weight [C] or [B, C]; mask [C], [B, 1] or [B, C]. Differentiable in
-    the logits only (closed form, plain tensor ops, as the JAX package's
-    VJP). CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/bce.cu`` (or raise); equal inputs give equal bits."""
+    the logits only (the JAX package's closed-form VJP, as
+    ``bce_with_logits_masked_grad``). CPU tensors take the plain versions;
+    CUDA tensors launch ``csrc/bce.cu``, one kernel forward and one backward
+    (or raise); equal inputs give equal bits."""
     return _BceMaskedSum.apply(logits, labels, pos_weight, mask)

@@ -61,9 +61,22 @@ def paeth_shift_params(theta, tx, ty, H: int, W: int) -> torch.Tensor:
 
 
 def norm_constants(mean, std) -> tuple[list[float], list[float]]:
-    """255·mean_c and 255·std_c, each rounded once to f32."""
+    """255·mean_c and 255·std_c, each rounded once to f32: the constants of
+    the warp kernel alone, as the JAX warp kernel bakes
+    ``float(mean[c]) * 255.0`` into its body (``fused_warp_normalize`` and
+    its plain version)."""
     m = torch.tensor([float(v) * 255.0 for v in mean], dtype=torch.float32)
     s = torch.tensor([float(v) * 255.0 for v in std], dtype=torch.float32)
+    return m.tolist(), s.tolist()
+
+
+def norm_constants_f32(mean, std) -> tuple[list[float], list[float]]:
+    """255·mean_c and 255·std_c as the f32 product of f32 mean and std, as
+    every other normalization of the JAX package forms them
+    (``augment.normalize``): for std 0.224 this is 57.120003, where
+    ``norm_constants`` gives 57.12."""
+    m = torch.tensor(mean, dtype=torch.float32) * 255.0
+    s = torch.tensor(std, dtype=torch.float32) * 255.0
     return m.tolist(), s.tolist()
 
 
@@ -189,7 +202,7 @@ def fused_warp_normalize_ref(images_u8, params, flip, mean, std):
     x = _shift_rows(x, params[:, 0])
     x = _shift_rows(x.transpose(2, 3), params[:, 1]).transpose(2, 3)
     x = _shift_rows(x, params[:, 2])
-    return normalize_planar(x, mean, std)
+    return _normalize_planar_by(x, *norm_constants(mean, std))
 
 
 # Output rows a block of ``csrc/fused_warp.cu`` computes (its kTileRows).
@@ -314,8 +327,12 @@ def planar_f32(images_u8: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_planar(x: torch.Tensor, mean, std) -> torch.Tensor:
-    """ToTensor + Normalize of f32 NCHW in 0..255: (x − 255·mean)/(255·std)."""
-    m, s = norm_constants(mean, std)
+    """ToTensor + Normalize of f32 NCHW in 0..255: (x − 255·mean)/(255·std),
+    with the constants of ``norm_constants_f32``."""
+    return _normalize_planar_by(x, *norm_constants_f32(mean, std))
+
+
+def _normalize_planar_by(x: torch.Tensor, m, s) -> torch.Tensor:
     m = torch.tensor(m, dtype=torch.float32, device=x.device)[None, :, None, None]
     s = torch.tensor(s, dtype=torch.float32, device=x.device)[None, :, None, None]
     return (x - m) / s

@@ -292,9 +292,10 @@ def test_paeth_affine_on_the_card_is_three_launches_and_matches_the_cpu(card):
 @pytest.mark.parametrize("B,H,Wd", [(8, 224, 224), (1, 33, 47), (3, 5, 300)])
 def test_normalize_flip_cutout_kernel_matches_plain_version(card, B, H, Wd):
     """Mixed flips, a box inside, a zero box, a box cut by the border, and
-    None for either operand. atol 1e-6 on the normalized scale (one
-    subtraction and one division, both correctly rounded); in practice
-    bitwise."""
+    None for either operand. Equal bits: every output value is an entry of
+    the kernel's gray-level table, which holds the plain version's own
+    subtraction and correctly rounded division for each of the 256 levels.
+    W = 47 runs one pixel a thread, the others four."""
     g = torch.Generator(device=card).manual_seed(B + H)
     imgs = torch.randint(0, 256, (B, H, Wd, 3), generator=g, device=card, dtype=torch.uint8)
     flips = (torch.arange(B, device=card) % 2).to(torch.int32)
@@ -302,23 +303,81 @@ def test_normalize_flip_cutout_kernel_matches_plain_version(card, B, H, Wd):
     boxes[0] = torch.tensor([1, 2, min(17, Wd), min(18, H)])
     if B > 2:
         boxes[2] = torch.tensor([Wd - 3, H - 2, Wd + 13, H + 14])
+    out = torch.empty((B, H, Wd, 3), dtype=torch.float32, device=card)
+    assert P.normalize_flip_cutout_plan(imgs, out, MEAN, STD)[0] == (Wd % 4 == 0)
     P.reset_launch_counts()
     for f, b in ((flips, boxes), (None, boxes), (flips, None), (None, None)):
         got = P.normalize_flip_cutout(imgs, f, b, MEAN, STD)
         want = P.normalize_flip_cutout_ref(imgs, f, b, MEAN, STD)
         torch.cuda.synchronize()
         assert got.shape == (B, H, Wd, 3) and got.dtype == torch.float32
-        assert float((got - want).abs().max()) <= 1e-6
+        assert torch.equal(got, want)
     assert P.LAUNCH_COUNTS["normalize_flip_cutout"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [64, 128])
+def test_normalize_flip_cutout_kernel_at_the_evaluation_chunks(card, B):
+    """The evaluation's chunk (64 test images) and its default batch size
+    (128), 224 px, neither flips nor boxes, through ``eval_batch``: equal
+    bits."""
+    from fedmlp_tpu_torch.ops import augment as A
+
+    g = torch.Generator(device=card).manual_seed(B)
+    imgs = torch.randint(0, 256, (B, 224, 224, 3), generator=g, device=card,
+                         dtype=torch.uint8)
+    P.reset_launch_counts()
+    got = A.eval_batch(imgs, MEAN, STD)
+    want = P.normalize_flip_cutout_ref(imgs, None, None, MEAN, STD).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    assert P.LAUNCH_COUNTS["normalize_flip_cutout"] == 1
+    assert got.shape == (B, 3, 224, 224) and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Wd", [47, 48])
+def test_normalize_flip_cutout_kernel_on_an_unaligned_batch_view(card, Wd):
+    """``imgs[1:]`` of a batch whose image is not a multiple of 16 bytes,
+    and a W % 4 == 0 batch one byte into its buffer: both run one pixel a
+    thread and give the plain version's bits."""
+    g = torch.Generator(device=card).manual_seed(Wd)
+    H = 13
+    if Wd == 47:
+        imgs = torch.randint(0, 256, (4, H, Wd, 3), generator=g, device=card,
+                             dtype=torch.uint8)[1:]
+    else:
+        flat = torch.randint(0, 256, (3 * H * Wd * 3 + 16,), generator=g, device=card,
+                             dtype=torch.uint8)
+        imgs = flat[1:1 + 3 * H * Wd * 3].view(3, H, Wd, 3)
+    assert imgs.is_contiguous() and imgs.data_ptr() % 16 != 0
+    out = torch.empty(imgs.shape, dtype=torch.float32, device=card)
+    assert not P.normalize_flip_cutout_plan(imgs, out, MEAN, STD)[0]
+    flips = torch.tensor([1, 0, 1], dtype=torch.int32, device=card)
+    boxes = torch.tensor([[3, 2, 20, 9], [0, 0, 0, 0], [40, 10, 60, 20]],
+                         dtype=torch.int32, device=card)
+    got = P.normalize_flip_cutout(imgs, flips, boxes, MEAN, STD)
+    want = P.normalize_flip_cutout_ref(imgs, flips, boxes, MEAN, STD)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _ulp(v: torch.Tensor) -> torch.Tensor:
+    """The f32 unit in the last place of |v| (v > 0)."""
+    return torch.pow(2.0, torch.floor(torch.log2(v)) - 23.0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,C", [(32, 8), (1, 1), (7, 5), (65536, 8), (100003, 3)])
 def test_bce_masked_sum_kernel_matches_plain_version(card, B, C):
-    """Forward within 1e-5 relative of the plain version (f32 sums in
-    another order), finite with logits at ±30, equal bits on a repeat (one
-    block or many: partial sums are added in index order); the gradient is
-    the closed form. pos_weight [C], mask [B, 1] read in place by stride."""
+    """Forward within 1e-5 relative of the plain version in float64 (f32
+    sums in another order), finite with logits at ±30, equal bits on a
+    repeat (one block or many: partial sums are added in index order).
+    The gradient kernel, with a cotangent g = 0.37 ≠ 1, against
+    ``bce_with_logits_masked_grad_ref``: within 2 ulps of |g|·max(pw, 1),
+    since both round every product in the same order but the card's expf
+    in the kernel and torch's sigmoid may differ in the last bit of p.
+    pos_weight [C], mask [B, C] and [B, 1] read in place by stride. Each
+    call is one launch of its kernel: the plain versions never run."""
     g = torch.Generator(device=card).manual_seed(B)
     x = (torch.randn((B, C), generator=g, device=card) * 4.0)
     x[0, 0] = 30.0
@@ -326,6 +385,7 @@ def test_bce_masked_sum_kernel_matches_plain_version(card, B, C):
     x.requires_grad_(True)
     y = (torch.rand((B, C), generator=g, device=card) < 0.4).float()
     pw = torch.rand((C,), generator=g, device=card) * 3.5 + 0.5
+    cot = torch.tensor(0.37, device=card)
     for mask in ((torch.rand((B, C), generator=g, device=card) < 0.7).float(),
                  (torch.rand((B, 1), generator=g, device=card) < 0.7).float()):
         P.reset_launch_counts()
@@ -334,14 +394,40 @@ def test_bce_masked_sum_kernel_matches_plain_version(card, B, C):
         want = P.bce_with_logits_masked_sum_ref(x.detach().double(), y.double(),
                                                 pw.double(), mask.double())
         torch.cuda.synchronize()
-        assert P.LAUNCH_COUNTS["bce_with_logits_masked_sum"] == 2
         assert torch.isfinite(got) and torch.equal(got.detach(), again.detach())
         assert abs(float(got.detach()) - float(want)) <= 1e-5 * abs(float(want)) + 1e-6
-        x.grad = None
-        got.backward()
-        x2 = x.detach().clone().requires_grad_(True)
-        P.bce_with_logits_masked_sum_ref(x2, y, pw, mask).backward()
-        assert float((x.grad - x2.grad).abs().max()) <= 1e-5
+        (dx,) = torch.autograd.grad(got, x, cot)
+        dx_ref = P.bce_with_logits_masked_grad_ref(cot, x.detach(), y, pw, mask)
+        torch.cuda.synchronize()
+        assert P.LAUNCH_COUNTS == {"normalize_flip_cutout": 0,
+                                   "bce_with_logits_masked_sum": 2,
+                                   "bce_with_logits_masked_grad": 1}
+        tol = 2.0 * _ulp(cot.abs() * torch.clamp(pw, min=1.0)).expand(B, C)
+        assert torch.isfinite(dx).all()
+        assert bool(((dx - dx_ref).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_bce_masked_sum_forward_and_backward_are_two_device_operations(card):
+    """At the training shape [32, 8]: one kernel forward (no fill before
+    it), one kernel backward (no elementwise chain), by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((32, 8), generator=g, device=card).requires_grad_(True)
+    y = (torch.rand((32, 8), generator=g, device=card) < 0.4).float()
+    pw = torch.rand((8,), generator=g, device=card) + 0.5
+    mask = (torch.rand((32, 8), generator=g, device=card) < 0.7).float()
+    cot = torch.tensor(0.25, device=card)
+    torch.autograd.grad(P.bce_with_logits_masked_sum(x, y, pw, mask), x, cot)  # build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(P.bce_with_logits_masked_sum(x, y, pw, mask), x, cot)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    assert len(names) == 2, names
 
 
 @pytest.mark.cuda
@@ -363,6 +449,12 @@ def test_new_kernels_reject_what_they_do_not_take(card):
         P.bce_with_logits_masked_sum(z.t().contiguous().t(), z, torch.ones(6, device=card), z)
     with pytest.raises(ValueError, match="f32 on"):
         P.bce_with_logits_masked_sum(z, z, torch.ones(6), z)
+    g = torch.ones((), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        P.bce_with_logits_masked_grad(g, z.t().contiguous().t(), z,
+                                      torch.ones(6, device=card), z)
+    with pytest.raises(ValueError, match="f32 scalar"):
+        P.bce_with_logits_masked_grad(torch.ones(()), z, z, torch.ones(6, device=card), z)
 
 
 @pytest.mark.cuda

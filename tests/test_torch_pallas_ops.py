@@ -51,6 +51,20 @@ def test_normalize_flip_cutout_matches_jax(which):
     np.testing.assert_array_equal(got[1].numpy(), plain[1].flip(1).numpy())
 
 
+@pytest.mark.parametrize("case", ["aligned", "w_not_multiple_of_4", "unaligned_base"])
+def test_normalize_flip_cutout_plan_picks_four_pixels_a_thread_only_where_it_can(case):
+    """Four pixels a thread needs W % 4 == 0 and 16-byte aligned bases; the
+    plan decides from the tensors alone, so it runs on the CPU too."""
+    H, Wd = 6, {"aligned": 8, "w_not_multiple_of_4": 7, "unaligned_base": 8}[case]
+    flat = torch.zeros(3 * H * Wd * 3 + 64, dtype=torch.uint8)
+    base = (-flat.data_ptr()) % 16 + (1 if case == "unaligned_base" else 0)
+    imgs = flat[base:base + 2 * H * Wd * 3].view(2, H, Wd, 3)
+    out = torch.empty((2, H, Wd, 3), dtype=torch.float32)
+    vec4, m, s = TP.normalize_flip_cutout_plan(imgs, out, MEAN, STD)
+    assert vec4 == (case == "aligned")
+    assert (m, s) == (TP.norm_constants_f32(MEAN, STD))
+
+
 def test_eval_batch_is_the_kernel_without_flip_or_box():
     """The test transform goes through ``normalize_flip_cutout``: NCHW, equal
     to the JAX ``eval_batch`` (rtol/atol 1e-6)."""
@@ -121,6 +135,55 @@ def test_bce_masked_sum_full_pos_weight_and_only_logits_get_a_gradient():
     again = TP.bce_with_logits_masked_sum(x, torch.from_numpy(labels), pw,
                                           torch.from_numpy(mask))
     assert torch.equal(got.detach(), again.detach())
+
+
+@pytest.mark.parametrize("pw_shape", ["C", "BC"])
+@pytest.mark.parametrize("mask_shape", ["BC", "C", "B1"])
+def test_bce_masked_grad_matches_jax_grad(mask_shape, pw_shape):
+    """``bce_with_logits_masked_grad_ref`` and the wrapper's backward on CPU
+    tensors against ``jax.grad`` of the Pallas function in interpret mode,
+    with the cotangent FixMatch gives the sum, 1/(B·n_active) ≠ 1. rtol
+    1e-5, atol 1e-6, the JAX tests' tolerances: the same closed form, but
+    torch's and XLA's sigmoid on the CPU may differ in the last bits."""
+    B, C = 9, 6
+    logits, labels, posw, rng = _bce_case(B, C, 4)
+    if pw_shape == "BC":
+        posw = rng.uniform(0.5, 4.0, (B, C)).astype(np.float32)
+    mask = {"BC": (rng.rand(B, C) < 0.7), "C": (rng.rand(C) < 0.7),
+            "B1": (rng.rand(B, 1) < 0.7)}[mask_shape].astype(np.float32)
+    scale = 1.0 / (B * 5)  # sup / (B · n_active) with 5 active classes
+    want = scale * np.asarray(jax.grad(lambda x: JP.fused_bce_with_logits_masked(
+        x, labels, posw, mask, True))(logits))
+
+    t = {k: torch.from_numpy(v) for k, v in
+         (("y", labels), ("pw", posw), ("m", mask))}
+    g = torch.tensor(scale, dtype=torch.float32)
+    ref = TP.bce_with_logits_masked_grad_ref(g, torch.from_numpy(logits), t["y"],
+                                             t["pw"], t["m"])
+    assert ref.shape == (B, C) and ref.dtype == torch.float32
+    np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-6)
+
+    x = torch.from_numpy(logits).requires_grad_(True)
+    TP.reset_launch_counts()
+    loss = TP.bce_with_logits_masked_sum(x, t["y"], t["pw"], t["m"]) / (B * 5)
+    loss.backward()
+    direct = TP.bce_with_logits_masked_grad(g, x.detach(), t["y"], t["pw"], t["m"])
+    assert TP.LAUNCH_COUNTS == dict.fromkeys(TP.LAUNCH_COUNTS, 0)  # CPU: plain versions
+    np.testing.assert_allclose(x.grad.numpy(), want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(direct, ref)
+
+
+def test_bce_masked_sum_backward_is_none_without_a_logits_gradient():
+    """Only pos_weight asks for a gradient: the backward gives None and
+    computes nothing."""
+    logits, labels, posw, _ = _bce_case(3, 4, 5)
+    pw = torch.from_numpy(posw).requires_grad_(True)
+    x = torch.from_numpy(logits)
+    got = TP.bce_with_logits_masked_sum(x, torch.from_numpy(labels), pw,
+                                        torch.ones((3, 4)))
+    assert got.requires_grad
+    got.backward()
+    assert pw.grad is None
 
 
 @pytest.mark.parametrize("bad", ["images", "flips", "boxes", "labels", "mask", "dtype"])
