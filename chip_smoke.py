@@ -54,7 +54,14 @@ first failure:
    rounds: a FedAvg warm-up, a round that splits the clients with the GMM on
    round 0's losses and aggregates with DaAgg, and a round that trains the
    clean and the noisy clients apart. Only the depth (rounds) is cut.
-9. profile, profile_strong, profile_convbn, time_b5b6 (only when asked
+9. slice_baselines: FedLSR (1 round), RSCFed through ``cli.main`` with
+   ``--dw_backend pallas`` (2 rounds with a checkpoint each, then
+   ``--resume`` from round 0's: round 1 repeats exactly, and the restored
+   per-client teacher differs from the global model), FedIRM (a supervised
+   and a relation round: the relation matrix finite and off 0.5), RoFL (2
+   rounds: round 0's centroids, then f_G) and ``centralized`` (1 client, 1
+   round), each a path of its own at the rung-5 geometry.
+10. profile, profile_strong, profile_convbn, time_b5b6 (only when asked
    for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
@@ -77,6 +84,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM: HBM rate (NVIDIA data sheet), the f32 rate outside the tensor
@@ -1120,37 +1128,50 @@ def run_rounds(path: str, card: str, tr, n_rounds: int) -> list:
     return seconds
 
 
+def client_steps(tr) -> int:
+    """Real local steps of one round, summed over the clients."""
+    return sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist()) * tr.cfg.local_ep
+
+
+def run_path(path: str, dev, card: str, cfg, n_rounds: int, expected) -> tuple:
+    """A ``Trainer`` at ``cfg``, ``n_rounds`` rounds (the last evaluates)
+    with the launch counts set to 0 just before and read just after, held to
+    ``expected(trainer)``. Returns (trainer, launches)."""
+    from fedmlp_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase {path}: setup {time.perf_counter() - t0:.2f} s")
+    reset_launch_counts()
+    run_rounds(path, card, tr, n_rounds)
+    launches = read_launch_counts()
+    check_launches(path, launches, expected(tr))
+    return tr, launches
+
+
 def phase_slice_strong(dev, card: str) -> dict:
     """FedAVG+FixMatch, one round of 20 clients and the evaluation, then
     CBAFed, 4 clients, warm-up 1, two rounds. Returns the launch counts of
     each as a path of its own."""
     from fedmlp_tpu_torch.config import CBAFedConfig
-    from fedmlp_tpu_torch.train import Trainer
 
-    t0 = time.perf_counter()
-    tr = Trainer(strong_config("fixmatch", K, 1), device=dev)
-    torch.cuda.synchronize()
-    print(f"phase slice_strong: setup {time.perf_counter() - t0:.2f} s")
-    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
-    reset_launch_counts()
-    run_rounds("slice_strong", card, tr, 1)
-    fixmatch = read_launch_counts()
     # a step makes the weak view with one warp launch and the strong view
     # with 3 shear passes for the affine prefix and 3 for each of the 2
     # RandAugment layers; its loss is two masked BCE sums, each one kernel
     # forward and one backward; the evaluation normalizes its 64 test images
     # in one chunk
-    check_launches("slice_strong", fixmatch, {
-        "fused_warp_normalize": steps, "hshift_rows": 9 * steps,
-        "bce_with_logits_masked_sum": 2 * steps,
-        "bce_with_logits_masked_grad": 2 * steps, "normalize_flip_cutout": 1})
+    _, fixmatch = run_path("slice_strong", dev, card, strong_config("fixmatch", K, 1), 1,
+                           lambda tr: {"fused_warp_normalize": client_steps(tr),
+                                       "hshift_rows": 9 * client_steps(tr),
+                                       "bce_with_logits_masked_sum": 2 * client_steps(tr),
+                                       "bce_with_logits_masked_grad": 2 * client_steps(tr),
+                                       "normalize_flip_cutout": 1})
 
-    tr = Trainer(strong_config("cbafed", 4, 2, cbafed=CBAFedConfig(rounds_warmup=1)),
-                 device=dev)
-    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
-    reset_launch_counts()
-    run_rounds("slice_cbafed", card, tr, 2)
-    cbafed = read_launch_counts()
+    tr, cbafed = run_path(
+        "slice_cbafed", dev, card,
+        strong_config("cbafed", 4, 2, cbafed=CBAFedConfig(rounds_warmup=1)), 2,
+        lambda tr: {"fused_warp_normalize": 2 * client_steps(tr), "normalize_flip_cutout": 1})
     tao = tr.server_state["tao"]
     print(f"phase slice_cbafed: tao {tao.tolist()}, residual of "
           f"{len(tr.server_state['residual'])} variables")
@@ -1158,8 +1179,6 @@ def phase_slice_strong(dev, card: str) -> dict:
         raise SystemExit("slice_cbafed: the pseudo-label round did not run")
     if not ((tao >= 0.55) & (tao <= 0.95)).all():
         raise SystemExit(f"slice_cbafed: tao outside [0.55, 0.95]: {tao}")
-    check_launches("slice_cbafed", cbafed, {
-        "fused_warp_normalize": 2 * steps, "normalize_flip_cutout": 1})
     return {"slice_strong": fixmatch, "slice_cbafed": cbafed}
 
 
@@ -1192,19 +1211,16 @@ def phase_slice_fednoro(dev, card: str) -> dict:
     DaAgg while every client still trains LA_KD; round 2 trains the clean
     clients on plain BCE and the noisy ones on LA_KD, and splits again."""
     from fedmlp_tpu_torch.config import FedNoRoConfig
-    from fedmlp_tpu_torch.train import Trainer
 
     rounds = 3
-    t0 = time.perf_counter()
-    tr = Trainer(strong_config("fednoro", K, rounds,
-                               fednoro=FedNoRoConfig(rounds_warmup=1, begin=0, end=2)),
-                 device=dev)
-    torch.cuda.synchronize()
-    print(f"phase slice_fednoro: setup {time.perf_counter() - t0:.2f} s")
-    steps = sum(int(math.ceil(n / B)) for n in tr.fd.valid.sum(1).tolist())
-    reset_launch_counts()
-    run_rounds("slice_fednoro", card, tr, rounds)
-    launches = read_launch_counts()
+    # one weak view a step (the frozen global model reads the same view);
+    # the last round's evaluation normalizes its 64 test images in one chunk
+    tr, launches = run_path(
+        "slice_fednoro", dev, card,
+        strong_config("fednoro", K, rounds,
+                      fednoro=FedNoRoConfig(rounds_warmup=1, begin=0, end=2)), rounds,
+        lambda tr: {"fused_warp_normalize": rounds * client_steps(tr),
+                    "normalize_flip_cutout": 1})
     st = tr.server_state
     weights = getattr(tr, "daagg_weights", None)
     print(f"phase slice_fednoro: split on round 1's losses: clean {st['clean']} noisy "
@@ -1214,11 +1230,139 @@ def phase_slice_fednoro(dev, card: str) -> dict:
     if weights is None or not (all(math.isfinite(v) for v in weights)
                                and abs(float(weights.sum()) - 1.0) <= 1e-5):
         raise SystemExit(f"slice_fednoro: DaAgg did not run or its weights are bad: {weights}")
-    # one weak view a step (the frozen global model reads the same view);
-    # the last round's evaluation normalizes its 64 test images in one chunk
-    check_launches("slice_fednoro", launches,
-                   {"fused_warp_normalize": rounds * steps, "normalize_flip_cutout": 1})
     return launches
+
+
+def _slice_rscfed(dev, card: str) -> dict:
+    """RSCFed through ``cli.main`` with ``--dw_backend pallas`` and a
+    checkpoint each round: 2 rounds, then ``--resume`` from round 0's
+    checkpoint, whose round 1 must repeat the first run's losses exactly
+    (cuDNN held to deterministic algorithms for this path; the depthwise
+    backward is the repo's own fixed-order kernels). The checkpoint's teacher,
+    restored into a ``Trainer``, must differ from its global model."""
+    import os
+    import pickle
+    import tempfile
+
+    from fedmlp_tpu_torch import cli
+    from fedmlp_tpu_torch.train import Trainer
+    from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint
+
+    path, rounds, n_train = "slice_rscfed", 2, K * 4 * B
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--exp", "RSCFed", "--dataset", "synthetic", "--model", "efficient_b0",
+                "--n_clients", str(K), "--n_classes", str(N_CLASSES),
+                "--image_size", str(SIZE), "--batch_size", str(B), "--p_pos", "0",
+                "--base_lr", "3e-5", "--compute_dtype", "bfloat16",
+                "--synthetic_train_size", str(n_train), "--synthetic_test_size", str(N_TEST),
+                "--dw_backend", "pallas", "--rounds", str(rounds), "--checkpoint_every", "1",
+                "--eval_every", "1000000", "--seed", "1037", "--output_dir", out,
+                "--exp_tag", "rscfed", "--device", dev.type]
+        metrics_path = os.path.join(out, "rscfed", "logs", "metrics.jsonl")
+        ckpts = [os.path.join(out, "rscfed", "models", f"ckpt_{r}.pkl") for r in range(rounds)]
+
+        def round_seconds() -> list:
+            with open(ckpts[-1], "rb") as fh:
+                return [h[3] for h in pickle.load(fh)["history"]]
+
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            reset_launch_counts()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            first, seconds = _read_losses(metrics_path), round_seconds()
+            cli.main(argv + ["--resume", ckpts[0]])
+            torch.cuda.synchronize()
+            launches = read_launch_counts()
+            again, resumed = _read_losses(metrics_path), round_seconds()[-1]
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        for rnd, secs in enumerate(seconds + [resumed]):
+            print(f"phase {path}: round {min(rnd, rounds - 1)}"
+                  f"{' (resumed)' if rnd == rounds else ''} {secs:.3f} s "
+                  f"{n_train / secs:.1f} img/s dw_backend=pallas [{card}]")
+        flat = [v for r in first.values() for v in r] + again[1]
+        if sorted(first) != [0, 1] or not all(math.isfinite(v) for v in flat):
+            raise SystemExit(f"{path}: missing or non-finite losses {first} {again}")
+        print(f"phase {path}: round 1 losses {first[1]}, resumed {again[1]}")
+        if again[1] != first[1]:
+            raise SystemExit(f"{path}: the resumed round 1 differs: {first[1]} vs {again[1]}")
+
+        t0 = time.perf_counter()
+        tr = Trainer(cli.config_from_args(cli.args_parser(argv)), device=dev)
+        load_checkpoint(ckpts[0], tr)
+        teacher = tr._rscfed_teacher
+        gap = [max(float((teacher[n][k].float() - v.float()).abs().max())
+                   for n, v in tr.global_vars.items()) for k in range(K)]
+        print(f"phase {path}: restored teacher against the global model, largest "
+              f"|difference| a client {min(gap):.3e} to {max(gap):.3e} "
+              f"({time.perf_counter() - t0:.2f} s)")
+        if not all(math.isfinite(g) and g > 0 for g in gap):
+            raise SystemExit(f"{path}: the restored teacher equals the global model: {gap}")
+    # two views a step; the student's forward (view 1) gets a backward, the
+    # teacher's (view 2) does not; the last round of each call evaluates
+    steps = K * (4 * B // B)
+    check_launches(path, launches, {
+        "fused_warp_normalize": 2 * steps * (rounds + 1),
+        "dw_dgrad": 16 * steps * (rounds + 1), "dw_wgrad": 16 * steps * (rounds + 1),
+        "normalize_flip_cutout": 2})
+    return launches
+
+
+def phase_slice_baselines(dev, card: str) -> dict:
+    """FedLSR, RSCFed, FedIRM, RoFL and ``centralized`` at the geometry of
+    ``strong_config`` (EfficientNet-B0, 224 px, batch 32, 20 clients, 8
+    classes, p_pos=0, bf16, 128 images a client); only the rounds are cut.
+    Each a path of its own: its launch counts set to 0 just before its rounds
+    and read just after; its last round evaluates (one
+    ``normalize_flip_cutout`` chunk of the 64 test images)."""
+    from fedmlp_tpu_torch.config import FedIRMConfig
+
+    out = {}
+    # FedLSR: two weak views a step
+    _, out["slice_fedlsr"] = run_path(
+        "slice_fedlsr", dev, card, strong_config("fedlsr", K, 1), 1,
+        lambda tr: {"fused_warp_normalize": 2 * client_steps(tr),
+                    "normalize_flip_cutout": 1})
+
+    out["slice_rscfed"] = _slice_rscfed(dev, card)
+
+    # FedIRM: a supervised round that reports the relation matrices, then a
+    # relation round with the params-only EMA teacher
+    tr, out["slice_fedirm"] = run_path(
+        "slice_fedirm", dev, card,
+        strong_config("fedirm", K, 2, fedirm=FedIRMConfig(rounds_sup=1)), 2,
+        lambda tr: {"fused_warp_normalize": 2 * 2 * client_steps(tr),
+                    "normalize_flip_cutout": 1})
+    rel = tr.server_state["relation"]
+    print(f"phase slice_fedirm: relation matrix diagonal {rel.diagonal().tolist()}, "
+          f"|x - 0.5| up to {float(abs(rel - 0.5).max()):.4f}")
+    if not (tr.server_state["ema_init"] and hasattr(tr, "_fedirm_teacher")):
+        raise SystemExit("slice_fedirm: the relation round did not run")
+    if not (math.isfinite(float(rel.sum())) and float(abs(rel - 0.5).max()) > 0):
+        raise SystemExit(f"slice_fedirm: relation matrix not finite or still 0.5: {rel}")
+
+    # RoFL: one weak view a step, plus the harvest of every client's table
+    # (4B images a chunk) at the start of each round; round 0 builds the
+    # centroids from the harvest, round 1 starts from f_G
+    tr, out["slice_rofl"] = run_path(
+        "slice_rofl", dev, card, strong_config("rofl", K, 2), 2,
+        lambda tr: {"fused_warp_normalize": 2 * (client_steps(tr) + tr.n_clients * int(
+            math.ceil(tr.fd.max_local / (4 * B)))), "normalize_flip_cutout": 1})
+    st = tr.server_state
+    if not (np.isfinite(st["f_G"]).all() and np.isfinite(st["pseudo"]).all()):
+        raise SystemExit("slice_rofl: non-finite centroids or pseudo-labels")
+    print(f"phase slice_rofl: f_G {st['f_G'].shape} norm {float(np.linalg.norm(st['f_G'])):.4f}, "
+          f"pseudo positives {int(st['pseudo'].sum())}")
+
+    # centralized: one client holding every image, every class active
+    tr, out["slice_centralized"] = run_path(
+        "slice_centralized", dev, card, strong_config("centralized", 1, 1), 1,
+        lambda tr: {"fused_warp_normalize": client_steps(tr), "normalize_flip_cutout": 1})
+    if tr.n_clients != 1 or not bool(tr.fd.active.all()) or tr.hidden.any():
+        raise SystemExit("slice_centralized: not one client with every label")
+    return out
 
 
 def _read_losses(metrics_path: str) -> dict:
@@ -1506,6 +1650,12 @@ _PATH_KERNELS = {
     "slice_cbafed": ("fused_warp_normalize", "normalize_flip_cutout"),
     "probe_convbn": ("conv1x1_bn_stats", "conv1x1_bn_act_2pass"),
     "slice_fednoro": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_fedlsr": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_rscfed": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad",
+                     "normalize_flip_cutout"),
+    "slice_fedirm": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_rofl": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_centralized": ("fused_warp_normalize", "normalize_flip_cutout"),
 }
 
 
@@ -1554,10 +1704,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
-                                        "probe_convbn,slice_fednoro",
+                                        "probe_convbn,slice_fednoro,slice_baselines",
                     help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
-                         "probe_convbn,slice_fednoro,profile,profile_strong,profile_convbn,"
-                         "time_b5b6")
+                         "probe_convbn,slice_fednoro,slice_baselines,profile,profile_strong,"
+                         "profile_convbn,time_b5b6")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1590,6 +1740,8 @@ def main(argv=None) -> int:
         by_path["probe_convbn"] = phase_probe_convbn(card)
     if "slice_fednoro" in phases:
         by_path["slice_fednoro"] = phase_slice_fednoro(dev, card)
+    if "slice_baselines" in phases:
+        by_path.update(phase_slice_baselines(dev, card))
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:

@@ -1,10 +1,21 @@
-"""Federated algorithm registry (FedMLP, FedAVG, FedNoRo, FixMatch and CBAFed
-so far)."""
+"""Federated algorithm registry: every name of the JAX package's."""
 
-from fedmlp_tpu_torch.algos import cbafed, fedavg, fedmlp, fednoro, fixmatch
+from fedmlp_tpu_torch.algos import (
+    cbafed,
+    fedavg,
+    fedirm,
+    fedlsr,
+    fedmlp,
+    fednoro,
+    fixmatch,
+    rofl,
+    rscfed,
+)
 
-_REGISTRY = {"cbafed": cbafed, "fedavg": fedavg, "fedmlp": fedmlp,
-             "fednoro": fednoro, "fixmatch": fixmatch}
+_REGISTRY = {"cbafed": cbafed, "centralized": fedavg, "fedavg": fedavg,
+             "fedirm": fedirm, "fedlsr": fedlsr, "fedmlp": fedmlp,
+             "fednoro": fednoro, "fixmatch": fixmatch, "rofl": rofl,
+             "rscfed": rscfed}
 
 
 def registered() -> list[str]:

@@ -29,6 +29,12 @@ def fedavg(stacked: dict, dict_len) -> dict:
     return _weighted_mean_tree(stacked, dict_len)
 
 
+def fed_w(stacked: dict, weight) -> dict:
+    """Weighted mean with arbitrary client weights (reference:
+    utils/FedAvg.py:16-23)."""
+    return _weighted_mean_tree(stacked, weight)
+
+
 def fedavg_tao(taos, weight, class_client_mask=None):
     """Per-class weighted mean of τ [K, C] over the clients in the mask
     [C, K]; an empty subset gives 1.0 (reference: utils/FedAvg.py:51-70).
@@ -69,6 +75,43 @@ def model_dist(tree_a: dict, tree_b: dict) -> torch.Tensor:
         n = torch.linalg.vector_norm((a.float() - tree_b[name].float()).reshape(-1))
         total = n if total is None else total + n
     return torch.zeros((), dtype=torch.float32) if total is None else total
+
+
+def rscfed(dma_groups, stacked: dict, K: int, dict_len, M: int) -> dict:
+    """RSCFed's sub-consensus (reference: utils/FedAvg.py:25-41): for each of
+    the M groups of K clients in ``dma_groups`` [M, K], the uniform mean,
+    then the mean reweighted by a = n_i/N_group, b = exp(−0.01·d_i/n_i), d_i
+    the ``model_dist`` of client i to that uniform mean; the result is the
+    uniform mean of the M sub-models."""
+    device = next(iter(stacked.values())).device
+    n_all = torch.as_tensor(np.asarray(dict_len), dtype=torch.float32, device=device)
+    groups = torch.as_tensor(np.asarray(dma_groups), dtype=torch.int64, device=device)
+    subs = []
+    for g in range(M):
+        sel = {name: x[groups[g]] for name, x in stacked.items()}
+        w_avg = _weighted_mean_tree(sel, torch.ones(K))
+        dist = None
+        for name, x in sel.items():
+            if not x.is_floating_point():
+                continue
+            d = torch.linalg.vector_norm((x.float() - w_avg[name]).reshape(K, -1), dim=1)
+            dist = d if dist is None else dist + d
+        n = n_all[groups[g]]
+        subs.append(_weighted_mean_tree(sel, n / n.sum() * torch.exp(-0.01 * dist / n)))
+    return _weighted_mean_tree({name: torch.stack([s[name] for s in subs])
+                                for name in subs[0]}, torch.ones(M))
+
+
+def fedavg_rela(mats, weight, class_active_mask):
+    """FedIRM's relation-matrix rows (reference: utils/FedAvg.py:95-103):
+    row c is the weighted mean of the clients' rows c over the clients
+    annotating class c. mats [K, C, C], mask [C, K] → [C, C]."""
+    p = torch.as_tensor(np.asarray(mats), dtype=torch.float32)
+    w = torch.as_tensor(np.asarray(weight), dtype=torch.float32)
+    m = torch.as_tensor(np.asarray(class_active_mask), dtype=torch.float32)
+    wm = m * w[None, :]
+    num = torch.einsum("ck,kcd->cd", wm, p)
+    return num / torch.clamp(wm.sum(1)[:, None], min=1e-12)
 
 
 def _pair_dists(stacked: dict, rows, cols) -> torch.Tensor:

@@ -1,10 +1,12 @@
-"""Losses of the ported slice, and the rampups that weight them."""
+"""Losses of the ported slices, and the rampups that weight them."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+_EPS = 1e-6  # the clip of the KL, JS and entropy terms
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor, pos_weight=None):
@@ -32,6 +34,45 @@ def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor, weight=None):
     if weight is not None:
         loss = loss * weight
     return loss
+
+
+def sigmoid_mse(input_logits: torch.Tensor, target_logits: torch.Tensor):
+    """(σ(a) − σ(b))² elementwise (reference: utils/local_training.py:94-107)."""
+    return (torch.sigmoid(input_logits) - torch.sigmoid(target_logits)) ** 2
+
+
+def kd_symmetric_kl(source: torch.Tensor, target: torch.Tensor):
+    """Symmetric KL with torch 'batchmean' semantics: the sum over elements
+    over the batch dimension (reference: utils/local_training.py:109-113)."""
+    q = torch.clamp(source, min=_EPS)
+    p = torch.clamp(target, min=_EPS)
+    b = source.shape[0]
+    kl_qp = (p * (torch.log(p) - torch.log(q))).sum() / b
+    kl_pq = (q * (torch.log(q) - torch.log(p))).sum() / b
+    return (kl_qp + kl_pq) / 2.0
+
+
+def js_divergence(p_output: torch.Tensor, q_output: torch.Tensor):
+    """Jensen-Shannon with torch ``KLDivLoss(reduction='mean')`` semantics:
+    the mean over ALL elements (reference: utils/local_training.py:1258-1266)."""
+    m = (p_output + q_output) / 2.0
+    log_m = torch.log(torch.clamp(m, min=_EPS))
+    n = p_output.numel()
+    kl_mp = (p_output * (torch.log(torch.clamp(p_output, min=_EPS)) - log_m)).sum() / n
+    kl_mq = (q_output * (torch.log(torch.clamp(q_output, min=_EPS)) - log_m)).sum() / n
+    return (kl_mp + kl_mq) / 2.0
+
+
+def anti_sigmoid(p: torch.Tensor):
+    """Inverse sigmoid (reference: utils/local_training.py:1268-1269)."""
+    return torch.log(p / (1.0 - p))
+
+
+def binary_entropy_per_class(probs: torch.Tensor):
+    """−Σ_{b∈{p,1−p}} b·log b, per element (RoFL's L_e and FedIRM's
+    uncertainty, reference: utils/local_training.py:595-601)."""
+    p = torch.clamp(probs, _EPS, 1.0 - _EPS)
+    return -(p * torch.log(p) + (1.0 - p) * torch.log(1.0 - p))
 
 
 # ----------------------------------------------------------------------

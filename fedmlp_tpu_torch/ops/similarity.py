@@ -1,4 +1,4 @@
-"""Prototype / similarity math for FedMLP stage 2."""
+"""Prototype / similarity math for FedMLP stage 2 and RoFL's centroids."""
 
 from __future__ import annotations
 
@@ -45,3 +45,12 @@ def confidence_fraction(probs, sample_mask, L: float, U: float):
     confident = ((probs < L) | (probs > U)).float()
     n = torch.clamp(sample_mask.float().sum(), min=1.0)
     return (confident * m).sum(dim=0) / n
+
+
+def rofl_centroid_update(f_k: torch.Tensor, f_kj_hat: torch.Tensor) -> torch.Tensor:
+    """RoFL's centroid EMA by squared cosine similarity, row by row of
+    [2C, D] (reference: utils/local_training.py:569-572)."""
+    dots = (f_k * f_kj_hat).sum(dim=1)
+    norms = torch.linalg.norm(f_k, dim=1) * torch.linalg.norm(f_kj_hat, dim=1)
+    s2 = ((dots / torch.clamp(norms, min=_EPS)) ** 2)[:, None]
+    return (1.0 - s2) * f_k + s2 * f_kj_hat

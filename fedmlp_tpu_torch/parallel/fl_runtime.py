@@ -156,37 +156,67 @@ def client_vars(stacked: dict, k: int) -> dict:
 
 def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                      view_mode: str = "single", needs_global: bool = False,
+                     teacher_decay: float | None = None,
+                     teacher_iter_corrected: bool = False,
+                     teacher_scope: str = "all", post_step=None,
                      augment_backend: str = "auto",
-                     compute_dtype: str = "float32", global_model=None):
+                     compute_dtype: str = "float32", global_model=None,
+                     teacher_model=None):
     """A function running one local round for every client in turn.
 
     ``loss_fn(model, views, sample, svalid, ctx, generator, scalars) ->
     loss`` or ``(loss, aux)`` computes ONE client's step loss with ``model``
-    in train mode (which updates its batch-norm running statistics).
+    in train mode (which updates its batch-norm running statistics). When
+    the round carries per-client state it also gets ``cstate=`` (the
+    client's state before the step).
 
     * ``views`` — 'x' (single) or 'x1'/'x2' f32 NCHW views ('dual': two weak
       views; 'weak_strong': a weak and a strong one), plus the frozen global
       model's eval-mode logits 'g_logits' or 'g_logits1'/'g_logits2' when
-      ``needs_global``.
-    * ``sample`` — per-sample rows of the plan's [K, M, ...] tables.
+      ``needs_global``, plus the teacher's eval-mode logits 't_logits'
+      (single, on 'x') or 't_logits2' (on 'x2') when a teacher is asked for.
+    * ``sample`` — per-sample rows of the plan's [K, M, ...] tables, and
+      '_pos' [B], the step's table positions.
     * ``ctx`` — the client's rows of the per-client context.
     * ``aux`` — a dict of per-step tensors (CBAFed's counters), summed over
       the client's steps; a skipped padding step adds nothing.
 
-    ``round_fn(global_vars, data, plan, scalars, generator)`` takes
+    A teacher (``teacher_decay`` set; RSCFed, FedIRM) is an EMA of the
+    client's model, updated after every real step in float32 with
+    α = ``teacher_decay``, or with ``teacher_iter_corrected`` α =
+    min(1 − 1/(it + 1), decay), it = ``plan['iter0']`` + the step's index in
+    the plan (padding steps count, as the JAX package's scan counter). Scope
+    'all' averages every floating entry of the state dict, 'params' the
+    parameters only (the teacher's batch-norm statistics stay as they came).
+    ``teacher_model`` is the module it runs in, of the model's architecture.
+
+    ``post_step(cstate, aux, sample, svalid, ctx) -> cstate`` (RoFL) runs
+    after every real step. The JAX package runs it on padding steps too,
+    with zeroed aux, which leaves RoFL's state as it was.
+
+    ``round_fn(global_vars, data, plan, scalars, generator, extra_state)``
+    takes
       data = {'images' u8 [N,H,W,3], 'idx' [K,M], 'ctx' {name: [K, ...]}}
       plan = {'pos' [S,K,B], 'pos_valid' [S,K,B] (numpy), 'sample'
-              {name: [K, M, ...]}}
-    and returns ({'vars': client-stacked variables}, mean_losses [K],
-    aux sums {name: [K, ...]}).
+              {name: [K, M, ...]}, 'iter0' (the lifetime step count)}
+      extra_state = None or {'teacher': {name: [K, ...]},
+                             'cstate': {name: [K, ...]}}
+    and returns ({'vars': client-stacked variables, plus 'teacher'/'cstate'
+    when they came in}, mean_losses [K], aux sums {name: [K, ...]}). The
+    incoming state is only read (it may be ``broadcast_to_clients``'s
+    expanded views); what comes out is new memory, one slice a client.
     ``global_model`` is a second module of the same architecture for the
     frozen-global forwards (built when ``needs_global``).
     """
     if view_mode not in ("single", "dual", "weak_strong"):
         raise ValueError(f"unknown view_mode {view_mode!r}")
+    if teacher_scope not in ("all", "params"):
+        raise ValueError(f"unknown teacher_scope {teacher_scope!r}")
+    has_teacher = teacher_decay is not None
     weak = A.pick_weak_backend(augment_backend)
     second = (A.pick_strong_backend(augment_backend) if view_mode == "weak_strong"
               else weak)
+    t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
 
     def augment_views(imgs_u8, generator):
         if view_mode == "single":
@@ -194,10 +224,34 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         return {"x1": weak(imgs_u8, generator, mean, std),
                 "x2": second(imgs_u8, generator, mean, std)}
 
-    def round_fn(global_vars, data, plan, scalars, generator):
+    def ema_pairs():
+        """(teacher tensors, model tensors) that the EMA averages."""
+        if teacher_scope == "params":
+            src = dict(model.named_parameters())
+            dst = dict(teacher_model.named_parameters())
+        else:
+            src, dst = model.state_dict(), teacher_model.state_dict()
+        names = [n for n, v in dst.items() if v.is_floating_point()]
+        return [dst[n].data for n in names], [src[n].data for n in names]
+
+    def teacher_alpha(it: int) -> tuple[float, float]:
+        """(α, 1 − α), each rounded to float32 as the JAX package forms them."""
+        one = np.float32(1.0)
+        alpha = np.float32(teacher_decay)
+        if teacher_iter_corrected:
+            alpha = min(one - one / (np.float32(it) + one), alpha)
+        return float(alpha), float(one - alpha)
+
+    def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
         pos, pos_valid = plan["pos"], plan["pos_valid"]
         S, K, B = pos.shape
         device = data["images"].device
+        extra_state = extra_state or {}
+        teacher, cstate = extra_state.get("teacher"), extra_state.get("cstate")
+        if has_teacher != (teacher is not None):
+            raise ValueError("a round with a teacher needs extra_state['teacher'], "
+                             "and one without takes none")
+        iter0 = int(plan.get("iter0", 0))
         pos_d = torch.as_tensor(pos, dtype=torch.int64, device=device)
         valid_d = torch.as_tensor(pos_valid, device=device)
         cast = autocast(device, compute_dtype)
@@ -206,12 +260,26 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
             global_model.eval()
         stacked = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=device)
                    for n, v in global_vars.items()}
+        out = {"vars": stacked}
+        if has_teacher:
+            out["teacher"] = {n: torch.empty_like(v, memory_format=torch.contiguous_format)
+                              for n, v in teacher.items()}
+            teacher_model.eval()
+        if cstate is not None:
+            out["cstate"] = {n: torch.empty_like(v, memory_format=torch.contiguous_format)
+                             for n, v in cstate.items()}
         mean_losses = torch.zeros((K,), dtype=torch.float32, device=device)
         aux_sums = [{} for _ in range(K)]
         for k in range(K):
             model.load_state_dict(global_vars)
             model.train()
             opt = torch_adam(model.parameters(), lr)
+            if has_teacher:
+                teacher_model.load_state_dict(client_vars(teacher, k))
+                t_dst, t_src = ema_pairs()
+            kw = {}
+            if cstate is not None:
+                kw["cstate"] = {n: v[k].clone() for n, v in cstate.items()}
             ctx = {n: v[k] for n, v in data["ctx"].items()}
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             cnt = 0
@@ -221,28 +289,44 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                 p = pos_d[s, k]
                 imgs = data["images"][data["idx"][k, p]]
                 sample = {n: t[k, p] for n, t in plan["sample"].items()}
+                sample["_pos"] = p
                 views = augment_views(imgs, generator)
                 with cast:
-                    if needs_global:
-                        with torch.no_grad():
+                    with torch.no_grad():
+                        if needs_global:
                             for v in [v for v in views if v.startswith("x")]:
                                 _, g = global_model(views[v])
                                 views["g_logits" + v[1:]] = g
-                    out = loss_fn(model, views, sample, valid_d[s, k], ctx,
-                                  generator, scalars)
-                loss, aux = out if isinstance(out, tuple) else (out, {})
+                        if has_teacher:
+                            _, views[t_key] = teacher_model(views[t_view])
+                    res = loss_fn(model, views, sample, valid_d[s, k], ctx,
+                                  generator, scalars, **kw)
+                loss, aux = res if isinstance(res, tuple) else (res, {})
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
                 opt.step()
+                if has_teacher:
+                    with torch.no_grad():
+                        alpha, one_minus = teacher_alpha(iter0 + s)
+                        torch._foreach_mul_(t_dst, alpha)
+                        torch._foreach_add_(t_dst, t_src, alpha=one_minus)
+                aux = {n: a.detach().float() for n, a in aux.items()}
+                if post_step is not None:
+                    kw["cstate"] = post_step(kw["cstate"], aux, sample, valid_d[s, k], ctx)
                 loss_sum += loss.detach().float()
                 cnt += 1
                 for n, a in aux.items():
-                    a = a.detach().float()
                     aux_sums[k][n] = aux_sums[k][n] + a if n in aux_sums[k] else a
             mean_losses[k] = loss_sum / max(cnt, 1)
             for n, v in model.state_dict().items():
                 stacked[n][k].copy_(v)
-        return {"vars": stacked}, mean_losses, _stack_aux(aux_sums)
+            if has_teacher:
+                for n, v in teacher_model.state_dict().items():
+                    out["teacher"][n][k].copy_(v)
+            if cstate is not None:
+                for n, v in kw["cstate"].items():
+                    out["cstate"][n][k].copy_(v)
+        return out, mean_losses, _stack_aux(aux_sums)
 
     return round_fn
 

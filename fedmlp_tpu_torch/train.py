@@ -180,7 +180,11 @@ class Trainer:
         self.hidden = build_hidden_mask(
             self.train_ds.targets, cfg.p_pos, np.random.RandomState(cfg.seed)
         )
-        self.active_lists = active_class_lists(cfg)[: self.n_clients]
+        if cfg.algorithm == "centralized":  # one client sees every label
+            self.active_lists = [list(range(cfg.n_classes))]
+            self.hidden[:] = False
+        else:
+            self.active_lists = active_class_lists(cfg)[: self.n_clients]
 
         self.fd = rt.build_federated_data(
             self.train_ds.images, self.train_ds.targets, self.dict_users,
@@ -189,21 +193,21 @@ class Trainer:
         self.dict_len = self.fd.n_local.cpu().numpy()
 
         # ---- model: one working module trains every client in turn; a
-        # second holds the frozen global model for NEEDS_GLOBAL algorithms
-        dw_backend = cfg.dw_backend or None
+        # second holds the frozen global model for NEEDS_GLOBAL algorithms,
+        # a third the EMA teacher for NEEDS_TEACHER ones
         self.model = init_model(
-            build_model(cfg.model, cfg.n_classes, dw_backend=dw_backend),
+            build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None),
             cfg.seed).to(self.device)
         self.global_vars = {n: v.detach().clone()
                             for n, v in self.model.state_dict().items()}
 
         # ---- algorithm ----
         self.algo = algo_registry.get_algorithm(cfg.algorithm)
-        self.global_model = None
-        if self.algo.NEEDS_GLOBAL or cfg.fedmlp.stage2_distill:
-            self.global_model = build_model(
-                cfg.model, cfg.n_classes, dw_backend=dw_backend).to(self.device)
-            self.global_model.requires_grad_(False)
+        self.global_model = (self._frozen_twin()
+                             if self.algo.NEEDS_GLOBAL or cfg.fedmlp.stage2_distill
+                             else None)
+        self.teacher_model = (self._frozen_twin()
+                              if getattr(self.algo, "NEEDS_TEACHER", False) else None)
         self.round_fn = rt.make_local_round(
             self.model, self.algo.loss_fn,
             lr=cfg.base_lr, batch_size=cfg.batch_size,
@@ -224,6 +228,12 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.iter_num = 0  # lifetime local-step counter (reference iter_num)
+
+    def _frozen_twin(self):
+        """A module of the model's architecture that takes no gradients."""
+        cfg = self.cfg
+        twin = build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None)
+        return twin.to(self.device).requires_grad_(False)
 
     # ------------------------------------------------------------------
     def client_ctx(self) -> dict:
@@ -247,16 +257,21 @@ class Trainer:
             ctx.update(self.algo.extra_ctx(self))
         return ctx
 
-    def local_pass(self, round_fn, sample_arrays: dict, scalars: dict):
+    def local_pass(self, round_fn, sample_arrays: dict, scalars: dict,
+                   extra_state: Optional[dict] = None):
         """One local-training pass for all clients with fresh batch plans;
-        returns (state, mean_losses [K], aux sums {name: [K, ...]})."""
+        returns (state, mean_losses [K], aux sums {name: [K, ...]}).
+        ``extra_state`` may carry 'teacher'/'cstate' entries for algorithms
+        that persist them; ``state`` then holds their new values."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
         data = {"images": self.fd.images, "idx": self.fd.idx,
                 "ctx": self.client_ctx()}
-        plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays}
-        out = round_fn(self.global_vars, data, plan, scalars, self.generator)
+        plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
+                "iter0": self.iter_num}
+        out = round_fn(self.global_vars, data, plan, scalars, self.generator,
+                       extra_state)
         self.iter_num += pos.shape[0]
         return out
 

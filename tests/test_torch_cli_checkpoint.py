@@ -94,7 +94,7 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--exp", "RSCFed"], "algorithm='rscfed' is not ported"),
+    (["--exp", "FedMLP", "--mixup", "1"], "fedmlp.mixup=1 is not ported"),
     (["--exp", "FedAVG", "--model", "Resnet18"], "model='Resnet18' is not ported"),
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x"], "--data_root needs load_packed"),
@@ -133,7 +133,7 @@ def _cfg(**kw):
     ("pre_augment", dict(pre_augment=64)),
     ("view_concat", dict(view_concat="on")),
     ("fedmlp.mixup", dict(fedmlp=FedMLPConfig(mixup=1))),
-    ("algorithm", dict(algorithm="rscfed")),
+    ("view_precat", dict(view_precat="on")),
     ("model", dict(model="resnet18")),
     ("batched_global", dict(batched_global="on")),
     ("pretrained_path", dict(pretrained_path="w.npz")),
