@@ -61,7 +61,17 @@ first failure:
    and a relation round: the relation matrix finite and off 0.5), RoFL (2
    rounds: round 0's centroids, then f_G) and ``centralized`` (1 client, 1
    round), each a path of its own at the rung-5 geometry.
-10. profile, profile_strong, profile_convbn, time_b5b6 (only when asked
+10. slice_resnet18: FedMLP on ResNet-18 (the reference's default, spelled
+   'Resnet18') at the flagship geometry, the data written to a packed shard
+   on disk with ``save_packed_dataset`` and read back with
+   ``load_packed_dataset``: two stage-1 rounds (the second harvests), one
+   stage-2 round with ``fedmlp.mixup``, and the evaluation, all counted.
+11. models_zoo: ResNet-50, SE-ResNet-50, SENet-154, VGG-16, DenseNet-121 and
+   ResNet-18 with the cosine head at full width: a float32 forward of one
+   model on the card against its copy on the CPU (B=4, 224 px, eval and
+   train mode), then one bf16 FedAVG round of 2 clients x 64 images through
+   the ``Trainer`` and its evaluation, with its seconds and peak memory.
+12. profile, profile_strong, profile_convbn, time_b5b6 (only when asked
    for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
@@ -970,14 +980,14 @@ def phase_kernel_dw(dev) -> list:
 
 
 def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
-                    dw_backend: str = ""):
+                    dw_backend: str = "", model: str = "efficient_b0", mixup: int = 0):
     """bench.py::_bench_fedmlp's flagship FedMLP run."""
     from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
 
     return Config(
-        algorithm="fedmlp", model="efficient_b0", batch_size=B, base_lr=3e-5,
+        algorithm="fedmlp", model=model, batch_size=B, base_lr=3e-5,
         n_clients=n_clients, local_ep=1, rounds_warmup=4, eval_every=10**6,
-        seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1),
+        seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1, mixup=mixup),
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
                         synthetic_train_size=n_train, synthetic_test_size=N_TEST),
         compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="",
@@ -1008,15 +1018,18 @@ def check_launches(path: str, launches: dict, expected: dict) -> None:
 
 
 def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
-                 n_rounds: int) -> tuple[dict, list]:
-    """Drive ``n_rounds`` rounds of the FedMLP ``Trainer`` at ``cfg``, with
-    the launch counts set to 0 just before and read just after; check the
-    outputs and that the counts equal what the rounds imply. Returns
-    (launches, seconds of each round)."""
+                 n_rounds: int, datasets=(None, None),
+                 count_eval: bool = False) -> tuple[dict, list]:
+    """Drive ``n_rounds`` rounds of the FedMLP ``Trainer`` at ``cfg`` (on
+    ``datasets`` (train, test) where given), with the launch counts set to 0
+    just before and read just after (after the final evaluation with
+    ``count_eval``); check the outputs and that the counts equal what the
+    rounds imply. Returns (launches, seconds of each round)."""
+    from fedmlp_tpu_torch.models import feature_dim_of
     from fedmlp_tpu_torch.train import Trainer
 
     t0 = time.perf_counter()
-    tr = Trainer(cfg, device=dev)
+    tr = Trainer(cfg, train_ds=datasets[0], test_ds=datasets[1], device=dev)
     torch.cuda.synchronize()
     print(f"phase {path}: setup {time.perf_counter() - t0:.2f} s")
     n_clients = tr.n_clients
@@ -1038,6 +1051,8 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
         "fused_warp_normalize": train_forwards + chunks + 2 * chunks * n_stage2,
         "dw_dgrad": dw, "dw_wgrad": dw,
     }
+    if count_eval:  # the test transform, one launch a chunk of 4B images
+        expected["normalize_flip_cutout"] = int(math.ceil(len(tr.test_ds) / (4 * B)))
 
     reset_launch_counts()
     losses, seconds = [], []
@@ -1052,8 +1067,12 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
               f"{secs:.3f} s {imgs_per_round / secs:.1f} img/s "
               f"mean loss {sum(rec.client_losses) / n_clients:.5f} "
               f"dw_backend={cfg.dw_backend or 'conv'} [{card}]")
-    launches = read_launch_counts()
+    if not count_eval:
+        launches = read_launch_counts()
     metrics = tr.evaluate()
+    torch.cuda.synchronize()
+    if count_eval:
+        launches = read_launch_counts()
     print(f"phase {path}: global_test {json.dumps(metrics)}")
 
     if not all(math.isfinite(x) for x in losses):
@@ -1065,6 +1084,11 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
         v = tr.server_state[key]
         if not torch.isfinite(torch.as_tensor(v)).all():
             raise SystemExit(f"non-finite server state {key}")
+    width = tr.server_state["proto"].shape[1]
+    print(f"phase {path}: feature width {width} ({cfg.model})")
+    if width != feature_dim_of(cfg.model):
+        raise SystemExit(f"{path}: prototypes {width} wide, {cfg.model} has "
+                         f"{feature_dim_of(cfg.model)}")
     print(f"phase {path}: tagged cells {int((tr.server_state['tags'] > 0).sum())}")
     check_launches(path, launches, expected)
     return launches, seconds
@@ -1087,6 +1111,136 @@ def phase_slice_dw(dev, card: str, conv_seconds) -> dict:
               f"{secs[1]:.3f} s with dw_backend='pallas'; default backend "
               f"{conv_seconds[1]:.3f} s and {conv_seconds[2]:.3f} s (phase slice, "
               f"rounds 1 and 2) [{card}]")
+    return launches
+
+
+def phase_slice_resnet18(dev, card: str) -> dict:
+    """FedMLP on ResNet-18 (the reference's default, spelled 'Resnet18') at
+    the flagship geometry, the data read from disk: the synthetic flagship
+    set (2560 train, 64 test images) written with ``save_packed_dataset``
+    into a temporary train/ and test/ and loaded back with
+    ``load_packed_dataset``. Two stage-1 rounds (the second harvests), one
+    stage-2 round with ``fedmlp.mixup``, then the evaluation, all inside the
+    counted span."""
+    import os
+    import tempfile
+
+    from fedmlp_tpu_torch.data.datasets import (load_packed_dataset,
+                                                make_synthetic_dataset,
+                                                save_packed_dataset)
+
+    cfg = flagship_config(K, N, model="Resnet18", mixup=1)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        for part, n, seed in (("train", N, cfg.seed), ("test", N_TEST, cfg.seed + 1)):
+            save_packed_dataset(make_synthetic_dataset(n, N_CLASSES, SIZE, seed=seed),
+                                os.path.join(root, part))
+        t1 = time.perf_counter()
+        train_ds = load_packed_dataset(os.path.join(root, "train"))
+        test_ds = load_packed_dataset(os.path.join(root, "test"))
+        print(f"phase slice_resnet18: packed shard of {len(train_ds)} + {len(test_ds)} "
+              f"images at {SIZE} px written in {t1 - t0:.2f} s, mapped back in "
+              f"{time.perf_counter() - t1:.3f} s")
+        # a stage-2 step mixes its one weak view after the warp: one launch
+        launches, _ = run_flagship("slice_resnet18", dev, card, cfg, 2, 3,
+                                   datasets=(train_ds, test_ds), count_eval=True)
+    return launches
+
+
+# the backbones of the models_zoo phase: (name, cosine head)
+ZOO = (("resnet50", False), ("senet50", False), ("senet154", False), ("vgg16", False),
+       ("dense121", False), ("resnet18", True))
+# the card's float32 forward against the CPU's, the largest difference over
+# the largest magnitude (TF32 off on the card): the two order their sums
+# differently, and train-mode batch norm at B=4 carries it through each layer
+ZOO_REL_TOL = 1e-3
+
+
+def _rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def phase_models_zoo(dev, card: str) -> dict:
+    """Each backbone of ``ZOO`` at full width: (a) one model copied to the
+    card and the CPU, a float32 forward of the same B=4, 224 px batch in eval
+    and in train mode on both, feature and logits within ``ZOO_REL_TOL``;
+    (b) one FedAVG round through the ``Trainer`` on the card, 2 clients x 64
+    images, B=32, 224 px, bf16, the trainer's generator reaching dropout
+    (VGG, SENet-154): finite losses, every parameter on the card, the
+    round's seconds (the first round of its trainer, so cuDNN's first calls
+    are in it, and the evaluation of the 64 test images) and peak memory.
+    The launch counts are set to 0 before the rounds and read after them:
+    one weak view a step, one test-transform chunk a round."""
+    import copy
+
+    from fedmlp_tpu_torch.config import Config, DataConfig
+    from fedmlp_tpu_torch.models import build_model, init_model
+    from fedmlp_tpu_torch.train import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1037)
+    x = torch.randn(4, 3, SIZE, SIZE, generator=g)
+    reset_launch_counts()
+    steps = 0
+    for name, normed in ZOO:
+        label = name + (" (cosine head)" if normed else "")
+        t0 = time.perf_counter()
+        cpu_model = init_model(build_model(name, N_CLASSES, normed_head=normed,
+                                           image_size=SIZE), seed=1037)
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        errs = {}
+        for mode in ("eval", "train"):
+            for m in (cpu_model, card_model):
+                m.train(mode == "train")
+            with torch.no_grad():
+                want = cpu_model(x)
+                got = card_model(x.to(dev))
+            errs[mode] = (_rel_err(got[0], want[0]), _rel_err(got[1], want[1]))
+        print(f"phase models_zoo: {label} card vs CPU, float32, B=4: eval feature "
+              f"{errs['eval'][0]:.3e} logits {errs['eval'][1]:.3e}, train feature "
+              f"{errs['train'][0]:.3e} logits {errs['train'][1]:.3e} (tol {ZOO_REL_TOL}; "
+              f"{time.perf_counter() - t0:.1f} s)")
+        if not all(e <= ZOO_REL_TOL for pair in errs.values() for e in pair):
+            raise SystemExit(f"models_zoo: {label} card and CPU disagree: {errs}")
+        del cpu_model, card_model
+
+        class ZooTrainer(Trainer):
+            def _build_model(self):  # the cosine head has no Config field
+                return build_model(self.cfg.model, self.cfg.n_classes,
+                                   normed_head=normed, image_size=SIZE)
+
+        cfg = Config(algorithm="fedavg", model=name, batch_size=B, base_lr=3e-5,
+                     n_clients=2, local_ep=1, rounds_warmup=1, eval_every=10**6,
+                     seed=1037, p_pos=0.0, compute_dtype="bfloat16", output_dir="",
+                     data=DataConfig(name="synthetic", n_classes=N_CLASSES,
+                                     image_size=SIZE, synthetic_train_size=2 * 64,
+                                     synthetic_test_size=N_TEST))
+        tr = ZooTrainer(cfg, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        rec = tr.run_round(0)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        steps += client_steps(tr)
+        off = [n for n, p in tr.model.named_parameters() if p.device.type != "cuda"]
+        print(f"phase models_zoo: {label} FedAVG round, 2 clients x 64 images, bf16: "
+              f"{secs:.3f} s, losses {rec.client_losses}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"{sum(p.numel() for p in tr.model.parameters())} parameters [{card}]")
+        if (not all(math.isfinite(v) for v in rec.client_losses) or off or not rec.metrics
+                or not all(math.isfinite(v) for v in rec.metrics.values())):
+            raise SystemExit(f"models_zoo: {label} losses {rec.client_losses}, metrics "
+                             f"{rec.metrics}, parameters off the card {off[:5]}")
+        if normed and type(tr.model.head).__name__ != "FCNormHead":
+            raise SystemExit("models_zoo: the cosine head did not reach the Trainer")
+        del tr
+        torch.cuda.empty_cache()
+    launches = read_launch_counts()
+    check_launches("models_zoo", launches, {"fused_warp_normalize": steps,
+                                            "normalize_flip_cutout": len(ZOO)})
     return launches
 
 
@@ -1656,6 +1810,8 @@ _PATH_KERNELS = {
     "slice_fedirm": ("fused_warp_normalize", "normalize_flip_cutout"),
     "slice_rofl": ("fused_warp_normalize", "normalize_flip_cutout"),
     "slice_centralized": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_resnet18": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "models_zoo": ("fused_warp_normalize", "normalize_flip_cutout"),
 }
 
 
@@ -1704,10 +1860,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
-                                        "probe_convbn,slice_fednoro,slice_baselines",
+                                        "probe_convbn,slice_fednoro,slice_baselines,"
+                                        "slice_resnet18,models_zoo",
                     help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
-                         "probe_convbn,slice_fednoro,slice_baselines,profile,profile_strong,"
-                         "profile_convbn,time_b5b6")
+                         "probe_convbn,slice_fednoro,slice_baselines,slice_resnet18,"
+                         "models_zoo,profile,profile_strong,profile_convbn,time_b5b6")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1742,6 +1899,10 @@ def main(argv=None) -> int:
         by_path["slice_fednoro"] = phase_slice_fednoro(dev, card)
     if "slice_baselines" in phases:
         by_path.update(phase_slice_baselines(dev, card))
+    if "slice_resnet18" in phases:
+        by_path["slice_resnet18"] = phase_slice_resnet18(dev, card)
+    if "models_zoo" in phases:
+        by_path["models_zoo"] = phase_models_zoo(dev, card)
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:

@@ -10,9 +10,10 @@ per-missing-class confidence fractions τ with each client's trained model.
 Stage 2: harvest the untagged pool with the arriving global model, score it
 against the prototypes, tag the top clean_threshold / bottom
 noise_threshold fractions on the host, train on view 1 with BCE masked to
-the confident cells, then refresh prototypes and τ with the trained
-clients. Tags live in an int8 [K, M, C] array (0 untagged, 1 clean,
-2 noise).
+the confident cells (with ``cfg.fedmlp.mixup``, on view 1 mixed in the
+batch, the loss interpolated between the two samples' cells), then refresh
+prototypes and τ with the trained clients. Tags live in an int8 [K, M, C]
+array (0 untagged, 1 clean, 2 noise).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from fedmlp_tpu_torch.algos.base import apply_train, masked_rows
 from fedmlp_tpu_torch.fl import fedavg_proto, fedavg_tao
 from fedmlp_tpu_torch.ops import losses as L
+from fedmlp_tpu_torch.ops.mixup import draw_mixup, mixup_images
 from fedmlp_tpu_torch.ops.similarity import (
     confidence_fraction,
     fedmlp_similarity_scores,
@@ -79,6 +81,30 @@ def stage2_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
         denom = torch.clamp(cell.sum() + dcell.sum(), min=1.0)
         loss = (sup.sum() + dis.sum()) / denom
     return loss
+
+
+def stage2_mixup_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
+    """Stage 2 with in-batch mixup (``cfg.fedmlp.mixup``; the reference's
+    DatasetSplit_Mixup + mixup_criterion, utils/local_training.py:1365-1415,
+    827-828, an ablation path main.py never enables). Each sample of view 1
+    mixes with a partner at weight lam (``draw_mixup``, before the
+    forward's dropout draws); the loss interpolates the two samples'
+    supervised cells, the partner's counted where both are real:
+    lam · L(p, y_a | cell_a) / |cell_a| + (1 − lam) · L(p, y_b | cell_b) / |cell_b|."""
+    labels = sample["labels"]
+    supmask = sample["supmask"]
+    x1 = views["x"]
+    lam, perm = draw_mixup(generator, x1.shape[0], x1.device)
+    _, logits1 = apply_train(model, mixup_images(x1, lam, perm), generator)
+    p1 = torch.sigmoid(logits1.float())
+    sv = svalid.to(supmask.dtype)
+    cell_a = supmask * sv[:, None]
+    cell_b = supmask[perm] * (sv * sv[perm])[:, None]
+    sup_a = (L.bce_on_probs(p1, labels) * cell_a).sum()
+    sup_b = (L.bce_on_probs(p1, labels[perm]) * cell_b).sum()
+    lam = lam.to(sup_a.dtype)
+    return (lam * sup_a / torch.clamp(cell_a.sum(), min=1.0)
+            + (1.0 - lam) * sup_b / torch.clamp(cell_b.sum(), min=1.0))
 
 
 # ----------------------------------------------------------------------
@@ -194,7 +220,8 @@ def _get_harvest(trainer):
 def _get_stage2_fn(trainer):
     if not hasattr(trainer, "_fedmlp_stage2_fn"):
         trainer._fedmlp_stage2_fn = rt.make_local_round(
-            trainer.model, stage2_loss_fn,
+            trainer.model,
+            stage2_mixup_loss_fn if trainer.cfg.fedmlp.mixup else stage2_loss_fn,
             lr=trainer.cfg.base_lr,
             batch_size=trainer.cfg.batch_size,
             mean=trainer.cfg.data.mean,

@@ -4,17 +4,20 @@ utils/options.py:4-81), plus ``--device``.
 
 Usage:
     python -m fedmlp_tpu_torch.cli --exp FedMLP --dataset synthetic --rounds 20
+    python -m fedmlp_tpu_torch.cli --exp FedMLP --model Resnet18 --data_root <shard>
 
-Runs on the card unless ``--device cpu`` is given; without a card and
-without that flag it raises. An ``--exp``, ``--model`` or engine value that
-the port has not got exits with a message that says so, as does
-``--data_root`` (packed datasets are not ported yet).
+``--data_root`` names a directory with a packed ``train/`` and ``test/``
+(``data/datasets.py::save_packed_dataset``, or ``tools/ingest.py``). Runs
+on the card unless ``--device cpu`` is given; without a card and without
+that flag it raises. An ``--exp``, ``--model`` or engine value that the
+port has not got exits with a message that says so.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 from fedmlp_tpu_torch import resolve_device
 from fedmlp_tpu_torch.config import (
@@ -281,6 +284,7 @@ def config_from_args(a) -> Config:
 
 
 def main(argv=None):
+    from fedmlp_tpu_torch.data.datasets import load_packed_dataset
     from fedmlp_tpu_torch.eval.evaluate import class_test
     from fedmlp_tpu_torch.train import Trainer, UnportedConfigError, check_ported
     from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -292,10 +296,11 @@ def main(argv=None):
         check_ported(cfg)
     except UnportedConfigError as e:
         raise SystemExit(f"fedmlp_tpu_torch: {e}") from e
-    if cfg.data.root:
-        raise SystemExit("fedmlp_tpu_torch: --data_root needs load_packed_dataset, "
-                         "which is not ported yet; use --dataset synthetic")
     device = resolve_device(a.device)
+    train_ds = test_ds = None
+    if cfg.data.root:  # <data_root>/{train,test}, packed (tools/ingest.py)
+        train_ds = load_packed_dataset(os.path.join(cfg.data.root, "train"))
+        test_ds = load_packed_dataset(os.path.join(cfg.data.root, "test"))
     writer, models_dir = set_output_files(cfg.output_dir, cfg.exp_tag)
     try:
         if cfg.deterministic:
@@ -303,7 +308,7 @@ def main(argv=None):
 
         if not cfg.train:
             # test-only branch (reference: main.py:365-377): per-class metrics
-            trainer = Trainer(cfg, device=device)
+            trainer = Trainer(cfg, train_ds=train_ds, test_ds=test_ds, device=device)
             if a.resume:
                 load_checkpoint(a.resume, trainer)
             for classid in range(cfg.n_classes):
@@ -321,7 +326,7 @@ def main(argv=None):
                 set_seed(run)
                 logging.info("=====> begin run %d <=====", run)
             trainer = Trainer(cfg if cfg.runs == 1 else cfg.replace(seed=run),
-                              device=device)
+                              train_ds=train_ds, test_ds=test_ds, device=device)
             start = 0
             if a.resume and run == 0:
                 start = load_checkpoint(a.resume, trainer)

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedmlp_tpu_torch.models.heads import LinearHead
+from fedmlp_tpu_torch.models.heads import make_head
 from fedmlp_tpu_torch.models.layers import (
     BatchNorm,
     drop_connect,
@@ -128,7 +128,8 @@ class MBConv(nn.Module):
 class EfficientNet(nn.Module):
     def __init__(self, width_mult: float, depth_mult: float, num_classes: int,
                  blocks=_B0_BLOCKS, dropout_p: float = 0.2,
-                 drop_connect_rate: float = 0.2, dw_backend: str = "conv"):
+                 drop_connect_rate: float = 0.2, dw_backend: str = "conv",
+                 normed_head: bool = False):
         super().__init__()
         self.dropout_p = dropout_p
         stem = _round_filters(32, width_mult)
@@ -152,7 +153,7 @@ class EfficientNet(nn.Module):
         head_ch = _round_filters(1280, width_mult)
         self.head_conv = nn.Conv2d(in_ch, head_ch, 1, bias=False)
         self.head_bn = _bn(head_ch)
-        self.head = LinearHead(head_ch, num_classes)
+        self.head = make_head(head_ch, num_classes, normed_head)
 
     def forward(self, x: torch.Tensor, generator=None):
         stochastic = self.training and generator is not None

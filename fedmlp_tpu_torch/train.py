@@ -32,7 +32,7 @@ from fedmlp_tpu_torch.data.masking import build_hidden_mask
 from fedmlp_tpu_torch.data.partition import iid_sampling, non_iid_dirichlet_sampling
 from fedmlp_tpu_torch.eval.metrics import multilabel_report
 from fedmlp_tpu_torch.fl import fedavg as agg_fedavg
-from fedmlp_tpu_torch.models import build_model, init_model
+from fedmlp_tpu_torch.models import build_model, init_model, load_pretrained
 from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
 from fedmlp_tpu_torch.models.factory import is_ported as model_is_ported
 from fedmlp_tpu_torch.ops.augment import AUGMENT_BACKENDS
@@ -60,7 +60,7 @@ def check_ported(cfg: Config) -> None:
     need(cfg.algorithm in algo_registry.registered(), "algorithm", cfg.algorithm,
          f"have {algo_registry.registered()}")
     need(model_is_ported(cfg.model), "model", cfg.model,
-         "have smallcnn and efficient_b0..b7")
+         "have the JAX registry's names and aliases")
     need(cfg.dw_backend in ("",) + DW_BACKENDS, "dw_backend", cfg.dw_backend,
          f"have '' and {DW_BACKENDS}")
     need(cfg.client_stacking in ("auto", "off"), "client_stacking",
@@ -84,8 +84,6 @@ def check_ported(cfg: Config) -> None:
          "parameters are float32")
     need(cfg.compute_dtype in ("float32", "bfloat16"), "compute_dtype",
          cfg.compute_dtype, "have float32 and bfloat16")
-    need(not cfg.pretrained_path, "pretrained_path", cfg.pretrained_path,
-         "loading converted weights is not ported")
     need(not cfg.data.host_stream, "data.host_stream", cfg.data.host_stream,
          "data is device-resident")
     need(not cfg.data.stream_window, "data.stream_window", cfg.data.stream_window,
@@ -93,8 +91,6 @@ def check_ported(cfg: Config) -> None:
     need(cfg.data.augment_backend in AUGMENT_BACKENDS,
          "data.augment_backend", cfg.data.augment_backend,
          f"have {AUGMENT_BACKENDS}")
-    need(not cfg.fedmlp.mixup, "fedmlp.mixup", cfg.fedmlp.mixup,
-         "the stage-2 mixup ablation is not ported")
     need(cfg.mesh.data_axis == 1 and cfg.mesh.client_axis in (-1, 1),
          "mesh", cfg.mesh, "one device")
     if bad:
@@ -195,9 +191,12 @@ class Trainer:
         # ---- model: one working module trains every client in turn; a
         # second holds the frozen global model for NEEDS_GLOBAL algorithms,
         # a third the EMA teacher for NEEDS_TEACHER ones
-        self.model = init_model(
-            build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None),
-            cfg.seed).to(self.device)
+        self.model = init_model(self._build_model(), cfg.seed)
+        if cfg.pretrained_path:
+            n_loaded, _missing = load_pretrained(self.model, cfg.pretrained_path)
+            log.info("loaded %d pretrained arrays from %s", n_loaded,
+                     cfg.pretrained_path)
+        self.model.to(self.device)
         self.global_vars = {n: v.detach().clone()
                             for n, v in self.model.state_dict().items()}
 
@@ -229,11 +228,16 @@ class Trainer:
         self.generator.manual_seed(cfg.seed)
         self.iter_num = 0  # lifetime local-step counter (reference iter_num)
 
+    def _build_model(self):
+        """An uninitialized module of ``cfg.model``: the one place the
+        Trainer builds the working, frozen-global and teacher modules."""
+        cfg = self.cfg
+        return build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None,
+                           image_size=cfg.data.image_size)
+
     def _frozen_twin(self):
         """A module of the model's architecture that takes no gradients."""
-        cfg = self.cfg
-        twin = build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None)
-        return twin.to(self.device).requires_grad_(False)
+        return self._build_model().to(self.device).requires_grad_(False)
 
     # ------------------------------------------------------------------
     def client_ctx(self) -> dict:
@@ -256,6 +260,28 @@ class Trainer:
         if hasattr(self.algo, "extra_ctx"):
             ctx.update(self.algo.extra_ctx(self))
         return ctx
+
+    def apply_corrections(self, corr: dict) -> int:
+        """Label corrections into the observed-label table: the reference's
+        DatasetSplit ``corr_idx`` (utils/local_training.py:1352-1355). For
+        the samples listed under (client, missing class) the observed label
+        becomes positive; an annotated class of that client is left as it
+        is. ``corr`` maps client → {class → GLOBAL sample indices}. Returns
+        the number of cells that flipped."""
+        obs = self.fd.obs_targets.cpu().numpy().copy()
+        idx = self.fd.idx.cpu().numpy()
+        valid = self.fd.valid.cpu().numpy()
+        active = self.fd.active.cpu().numpy()
+        flipped = 0
+        for k, per_class in corr.items():
+            for c, gidxs in per_class.items():
+                if active[k, c]:
+                    continue  # the reference corrects only missing classes
+                rows = np.isin(idx[k], np.asarray(list(gidxs))) & valid[k]
+                flipped += int((obs[k, rows, c] != 1.0).sum())
+                obs[k, rows, c] = 1.0
+        self.fd.obs_targets = torch.as_tensor(obs, device=self.device)
+        return flipped
 
     def local_pass(self, round_fn, sample_arrays: dict, scalars: dict,
                    extra_state: Optional[dict] = None):

@@ -94,10 +94,12 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--exp", "FedMLP", "--mixup", "1"], "fedmlp.mixup=1 is not ported"),
-    (["--exp", "FedAVG", "--model", "Resnet18"], "model='Resnet18' is not ported"),
+    (["--exp", "FedMLP", "--model", "Resnet18", "--remat", "1"], "remat=1 is not ported"),
+    (["--exp", "FedAVG", "--model", "Resnet18", "--client_stacking", "on"],
+     "client_stacking='on' is not ported"),
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
-    (["--exp", "FedAVG", "--data_root", "/data/x"], "--data_root needs load_packed"),
+    (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1"],
+     "data.host_stream=True is not ported"),
     (["--exp", "FedAVG+FixMatch", "--hoist_augment", "1"],
      "hoist_augment=1 is not ported"),
     (["--exp", "CBAFed", "--pre_augment", "64"], "pre_augment=64 is not ported"),
@@ -132,11 +134,11 @@ def _cfg(**kw):
     ("remat", dict(remat=1)),
     ("pre_augment", dict(pre_augment=64)),
     ("view_concat", dict(view_concat="on")),
-    ("fedmlp.mixup", dict(fedmlp=FedMLPConfig(mixup=1))),
+    ("param_dtype", dict(param_dtype="bfloat16")),
     ("view_precat", dict(view_precat="on")),
-    ("model", dict(model="resnet18")),
+    ("model", dict(model="resnet9")),
     ("batched_global", dict(batched_global="on")),
-    ("pretrained_path", dict(pretrained_path="w.npz")),
+    ("remat_stages", dict(remat_stages="2,3")),
 ])
 def test_unported_config_values_raise_naming_the_field(field, kw):
     """No knob is accepted and ignored: a ``Config`` value the port has no
