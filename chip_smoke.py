@@ -12,10 +12,13 @@ first failure:
 2. kernel: each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (the warp, the shear pass and the
    normalize/flip/cutout pass at B=32, 224 px, the warp also at 40° draws
-   with two images translated past the plane; the normalize/flip/cutout
+   with two images translated past the plane, and over a hoisted round's
+   2560 images in one launch, equal bit for bit to launches of 32; the shear
+   pass also at a 256-image pre-augment chunk; the normalize/flip/cutout
    pass held to equal bits, also at the evaluation's chunk and at a shape
    that runs one pixel a thread; the two depthwise kernels at the 16
-   depthwise layers of EfficientNet-B0; the masked BCE sum and its gradient
+   depthwise layers of EfficientNet-B0, also at B=64, the batch of the
+   one-forward stage 1; the masked BCE sum and its gradient
    kernel at [32, 8] and [65536, 8], forward plus backward 2 device
    operations; the fused 1x1-conv + batch-norm kernels at the probe's shapes),
    with its median time (CUDA events), the plain version's time,
@@ -71,13 +74,25 @@ first failure:
    model on the card against its copy on the CPU (B=4, 224 px, eval and
    train mode), then one bf16 FedAVG round of 2 clients x 64 images through
    the ``Trainer`` and its evaluation, with its seconds and peak memory.
-12. profile, profile_strong, profile_convbn, time_b5b6 (only when asked
-   for): where a stage-1 round's device time goes, for both depthwise
+12. slice_views: the flagship geometry with ``dw_backend='pallas'``,
+   ``view_concat='on'`` and ``hoist_augment=1``, two stage-1 rounds and one
+   stage-2 round: stage 1 runs one 2B forward a step (B3/B4 at a batch of
+   64) and is not hoisted (S·K·B·2 = 5120 view images > 4096); stage 2 makes
+   its 2560 views in one warp launch before its first step.
+13. slice_preaug: FedAVG+FixMatch at slice_strong's geometry with
+   ``pre_augment=256``: the round's views made before it in ten 256-image
+   chunks. Then the views of one round made with chunk=256 and chunk=2560
+   from one generator state (the weak view equal bit for bit), and
+   RandAugmentPC and ``augment_pair`` on the card against the CPU on the
+   same draws (B=32, 224 px).
+14. profile, profile_strong, profile_convbn, time_b5b6, time_views (only
+   when asked for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
    device operations of the normalize/flip/cutout and BCE kernels alone
    (this script copied into another commit's checkout times that commit's
-   kernels).
+   kernels); the rounds of trainers that make their views in the step,
+   hoisted, before the round, or concatenated, run in turns.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -232,6 +247,7 @@ def phase_kernel_warp(dev) -> dict:
           f"library_ms=null (no single PyTorch call computes this warp); "
           f"floor_ms={floor_ms:.4f} (a one-cycle kernel) fill_ms={fill_ms:.4f} "
           f"(zero_ of the f32 output)")
+    err = max(err, warp_at_round(dev, flush))
     return {
         "name": "fused_warp_normalize",
         "route": "cuda",
@@ -245,6 +261,50 @@ def phase_kernel_warp(dev) -> dict:
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "library_ms": None,
     }
+
+
+def warp_at_round(dev, flush) -> float:
+    """The warp over a hoisted round's N = S·K·B = 2560 images in one launch
+    (the flagship's stage 2 with ``hoist_augment=1``): equal bit for bit to
+    the same images in launches of 32 and within 1e-4 of the plain version,
+    its time from a flushed L2 beside its bound (1926.8 MB at 3.35 TB/s), the
+    plain version's and a ``zero_`` of the output. Returns the error."""
+    from fedmlp_tpu_torch.ops import warp
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2560)
+    imgs = torch.randint(0, 256, (N, SIZE, SIZE, 3), generator=g, device=dev,
+                         dtype=torch.uint8)
+    ang, tx, ty, flip = warp.weak_params(N, SIZE, SIZE, g, dev)
+    params = warp.paeth_shift_params(torch.deg2rad(torch.where(flip, -ang, ang)),
+                                     torch.where(flip, -tx, tx), ty, SIZE,
+                                     SIZE).contiguous()
+    got = warp.fused_warp_normalize(imgs, params, flip, MEAN, STD)
+    n_diff = sum(int((warp.fused_warp_normalize(imgs[c:c + B], params[c:c + B],
+                                                flip[c:c + B], MEAN, STD)
+                      != got[c:c + B]).sum()) for c in range(0, N, B))
+    print(f"phase kernel: fused_warp_normalize N={N} in one launch: {n_diff} values "
+          f"differ from {N // B} launches of {B} (tol 0)")
+    if n_diff:
+        raise SystemExit(f"fused_warp_normalize at N={N} differs from launches of {B}")
+    ms = cuda_ms(lambda: warp.fused_warp_normalize(imgs, params, flip, MEAN, STD), 10, 2,
+                 flush)
+    err = float((got - warp.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD))
+                .abs().max())
+    print(f"phase kernel: fused_warp_normalize N={N} max_abs_err={err:.3e} against the "
+          f"plain version (tol 1e-4)")
+    if not err <= 1e-4:
+        raise SystemExit(f"fused_warp_normalize disagrees with its plain version at N={N}")
+    plain_ms = cuda_ms(lambda: warp.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD),
+                       3, 1, flush)
+    fill_ms = cuda_ms(lambda: got.zero_(), 10, 2, flush)
+    n_bytes = N * (SIZE * SIZE * 3 + 3 * SIZE * SIZE * 4 + 9 * 4 + 1)
+    bound_ms, bound_by = _bound(n_bytes, N * 3 * SIZE * SIZE * (7 * 4 + 2))
+    print(f"phase kernel: fused_warp_normalize N={N} (a hoisted round) flushed L2 "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
+          f"{n_bytes / 1e6:.1f} MB) share={bound_ms / ms:.3f} fill_ms={fill_ms:.4f} "
+          f"(zero_ of the f32 output)")
+    return err
 
 
 def _bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -308,6 +368,26 @@ def phase_kernel_hshift(dev) -> dict:
     ms = (2.0 * ms_h + ms_v) / 3.0
     # the planes read once and written once, the shifts read; 4 flops a pixel
     bound_ms, bound_by = _bound(2 * x.numel() * 4 + B * SIZE * 4, 4 * x.numel())
+    chunk = 256  # a pre_augment=256 chunk
+    xc = torch.rand((chunk, 3, SIZE, SIZE), generator=g, device=dev) * 255.0
+    sc = ((torch.rand((chunk, SIZE), generator=g, device=dev) * 2.0 - 1.0) * 60.0).contiguous()
+    for axis in (3, 2):
+        e = (warp.hshift_rows(xc, sc, axis) - warp.hshift_rows_ref(xc, sc, axis)).abs().max()
+        err = max(err, float(e))
+        print(f"phase kernel: hshift_rows N={chunk} axis={axis} max|s|=60 "
+              f"max_abs_err={float(e):.3e} (tol {tol:g})")
+        if not float(e) <= tol:
+            raise SystemExit(f"hshift_rows disagrees with its plain version at N={chunk}")
+    ms_c = {a: cuda_ms(lambda a=a: warp.hshift_rows(xc, sc, a), 20, 3, flush) for a in (3, 2)}
+    plain_c = cuda_ms(lambda: warp.hshift_rows_ref(xc, sc, 3), 3, 1, flush)
+    yc = torch.empty_like(xc)
+    copy_c = cuda_ms(lambda: yc.copy_(xc), 20, 3, flush)
+    bound_c, by_c = _bound(2 * xc.numel() * 4 + chunk * SIZE * 4, 4 * xc.numel())
+    print(f"phase kernel: hshift_rows N={chunk} 3x{SIZE}x{SIZE} (a pre-augment chunk) "
+          f"flushed L2 ms={(2.0 * ms_c[3] + ms_c[2]) / 3.0:.4f} (horizontal {ms_c[3]:.4f}, "
+          f"vertical {ms_c[2]:.4f}) plain_ms={plain_c:.4f} bound_ms={bound_c:.4f} "
+          f"({by_c}, {(2 * xc.numel() * 4 + chunk * SIZE * 4) / 1e6:.1f} MB a pass) "
+          f"share={bound_c / ((2.0 * ms_c[3] + ms_c[2]) / 3.0):.3f} copy_ms={copy_c:.4f}")
     print(f"phase kernel: hshift_rows B={B} 3x{SIZE}x{SIZE} ms={ms:.4f} "
           f"(horizontal {ms_h:.4f}, vertical {ms_v:.4f}) plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} share={bound_ms / ms:.3f} "
@@ -830,15 +910,15 @@ def dw_layer_calls(dev) -> list:
     return calls
 
 
-def _dw_case(dev, g, call, dtype):
-    """Random operands of one layer's backward: x, the strided cotangent,
-    the filter, and the padded input that the library's convolution
-    backward takes."""
+def _dw_case(dev, g, call, dtype, batch: int = B):
+    """Random operands of one layer's backward at ``batch`` images: x, the
+    strided cotangent, the filter, and the padded input that the library's
+    convolution backward takes."""
     _, C, H, W, k, stride, pads = call
     (pt, pb), (pl, pr) = pads
     Ho, Wo = (H + pt + pb - k) // stride + 1, (W + pl + pr - k) // stride + 1
-    x = torch.randn((B, C, H, W), generator=g, device=dev).to(dtype)
-    dy = torch.randn((B, C, Ho, Wo), generator=g, device=dev).to(dtype)
+    x = torch.randn((batch, C, H, W), generator=g, device=dev).to(dtype)
+    dy = torch.randn((batch, C, Ho, Wo), generator=g, device=dev).to(dtype)
     w = (torch.randn((C, 1, k, k), generator=g, device=dev) * 0.2).to(dtype)
     return {"x": x, "dy": dy, "w": w, "k": k, "stride": stride, "pads": pads,
             "xp": torch.nn.functional.pad(x, (pl, pr, pt, pb))}
@@ -874,7 +954,7 @@ def _dw_check(call, dtype, dx, dx_ref, dw, dw2, dw_ref) -> tuple[float, float]:
     dw_tol = 1e-4 * float(dw_ref.abs().max())
     name, C, H, W, k, stride, _ = call
     tname = "bf16" if dtype == torch.bfloat16 else "f32"
-    print(f"phase kernel: {name} C={C} {H}x{W} k={k} s={stride} {tname} "
+    print(f"phase kernel: {name} B={dx.shape[0]} C={C} {H}x{W} k={k} s={stride} {tname} "
           f"dx max_abs_err={float(dx_err.max()):.3e} "
           f"dw max_abs_err={dw_err:.3e} (tol {dw_tol:.3e}) "
           f"repeat_equal={torch.equal(dw, dw2)}")
@@ -954,9 +1034,11 @@ def phase_kernel_dw(dev) -> list:
                             f"bound_ms={bound:.4f} share={bound / ms:.3f}")
             print(f"phase kernel: layer {i + 1:2d} C={C} {H}x{W} k={k} s={stride} bf16 "
                   + " | ".join(line))
+    at_2b = dw_at_2b(dev, calls, g, flush)
     out = []
     for kname, line in (("dw_dgrad", 112), ("dw_wgrad", 144)):
         st = stats[kname]
+        st["err"] = max(st["err"], at_2b[kname])
         bound_ms = max(st["bytes_ms"], st["flops_ms"])
         print(f"phase kernel: {kname} 16 layers bf16 B={B}: ms={st['ms']:.4f} "
               f"launch_ms={st['launch_ms']:.4f} plain_ms={st['plain_ms']:.4f} "
@@ -979,9 +1061,43 @@ def phase_kernel_dw(dev) -> list:
     return out
 
 
+def dw_at_2b(dev, calls, g, flush) -> dict:
+    """Both depthwise kernels at the 16 B0 layers at B=64 in bf16, the batch
+    of FedMLP's one-forward stage 1 (``view_concat='on'``), against their
+    plain versions (``_dw_check``'s tolerances); the sums over the layers of
+    their times from a flushed L2, the library's and the bounds. Returns
+    each kernel's largest error."""
+    from fedmlp_tpu_torch.ops import dw_pallas as dwp
+
+    names = ("dw_dgrad", "dw_wgrad")
+    st = {n: {"err": 0.0, "ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0} for n in names}
+    for call in calls:
+        _, C, H, W, k, stride, pads = call
+        case = _dw_case(dev, g, call, torch.bfloat16, batch=2 * B)
+        x, dy, w = case["x"], case["dy"], case["w"]
+        fns = {"dw_dgrad": lambda: dwp.dw_dgrad(dy, w, stride, pads, (H, W)),
+               "dw_wgrad": lambda: dwp.dw_wgrad(x, dy, k, stride, pads)}
+        dx, dw, dw2 = fns["dw_dgrad"](), fns["dw_wgrad"](), fns["dw_wgrad"]()
+        errs = _dw_check(call, torch.bfloat16, dx, dwp.dw_dgrad_ref(dy, w, stride, pads, (H, W)),
+                         dw, dw2, dwp.dw_wgrad_ref(x, dy, k, stride, pads))
+        planes = (x.numel() + dy.numel()) * x.element_size()
+        small = {"dw_dgrad": w.numel() * w.element_size(), "dw_wgrad": dw.numel() * 4}
+        for n, e, mask in zip(names, errs, ([True, False, False], [False, True, False])):
+            st[n]["err"] = max(st[n]["err"], e)
+            st[n]["ms"] += cuda_ms(fns[n], 10, 2, flush)
+            st[n]["library_ms"] += cuda_ms(lambda: _library_backward(case, mask), 10, 2, flush)
+            st[n]["bound_ms"] += _bound(planes + small[n], 2 * k * k * dy.numel())[0]
+    for n in names:
+        print(f"phase kernel: {n} 16 layers bf16 B={2 * B} (view_concat's 2B): "
+              f"ms={st[n]['ms']:.4f} library_ms={st[n]['library_ms']:.4f} "
+              f"bound_ms={st[n]['bound_ms']:.4f} share={st[n]['bound_ms'] / st[n]['ms']:.3f}")
+    return {n: st[n]["err"] for n in names}
+
+
 def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
-                    dw_backend: str = "", model: str = "efficient_b0", mixup: int = 0):
-    """bench.py::_bench_fedmlp's flagship FedMLP run."""
+                    dw_backend: str = "", model: str = "efficient_b0", mixup: int = 0,
+                    **kw):
+    """bench.py::_bench_fedmlp's flagship FedMLP run (``kw``: engine knobs)."""
     from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
 
     return Config(
@@ -990,8 +1106,27 @@ def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
         seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1, mixup=mixup),
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
                         synthetic_train_size=n_train, synthetic_test_size=N_TEST),
-        compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="",
+        compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="", **kw,
     )
+
+
+def views_positions(tr) -> int:
+    """S·K·B of ``tr``'s rounds: every plan position, padding included."""
+    S = tr.cfg.local_ep * int(math.ceil(int(tr.fd.valid.sum(1).max()) / B))
+    return S * tr.n_clients * B
+
+
+def hoisted(tr, n_views: int) -> bool:
+    """Whether ``tr``'s rounds of ``n_views`` views a step make them all
+    before the first step (``hoist_augment``, at most
+    ``HOIST_MAX_VIEWS`` view images a round)."""
+    from fedmlp_tpu_torch.parallel.fl_runtime import HOIST_MAX_VIEWS
+
+    return bool(tr.cfg.hoist_augment) and views_positions(tr) * n_views <= HOIST_MAX_VIEWS
+
+
+# seconds of each round of each path run so far, by path
+ROUND_SECONDS = {}
 
 
 def reset_launch_counts() -> None:
@@ -1019,12 +1154,13 @@ def check_launches(path: str, launches: dict, expected: dict) -> None:
 
 def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
                  n_rounds: int, datasets=(None, None),
-                 count_eval: bool = False) -> tuple[dict, list]:
+                 count_eval: bool = False) -> dict:
     """Drive ``n_rounds`` rounds of the FedMLP ``Trainer`` at ``cfg`` (on
     ``datasets`` (train, test) where given), with the launch counts set to 0
     just before and read just after (after the final evaluation with
     ``count_eval``); check the outputs and that the counts equal what the
-    rounds imply. Returns (launches, seconds of each round)."""
+    rounds imply. Returns the launches; each round's seconds go to
+    ``ROUND_SECONDS[path]``."""
     from fedmlp_tpu_torch.models import feature_dim_of
     from fedmlp_tpu_torch.train import Trainer
 
@@ -1036,37 +1172,50 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
     imgs_per_round = int(tr.fd.valid.sum().item()) * cfg.local_ep
 
     # expected launches. Warp: two weak views per real stage-1 step, one per
-    # stage-2 step, one per harvest chunk and client (one sweep in the last
-    # stage-1 round, two in a stage-2 round). Depthwise kernels
-    # (dw_backend='pallas'): one launch of each per depthwise layer (16) and
-    # train-mode forward that gets a backward: two per real stage-1 step,
+    # stage-2 step (a hoisted round: one launch a view for the whole round),
+    # one per harvest chunk and client (one sweep in the last stage-1 round,
+    # two in a stage-2 round). Depthwise kernels (dw_backend='pallas'): one
+    # launch of each per depthwise layer (16) and train-mode forward that
+    # gets a backward: two per real stage-1 step (one with view_concat='on'),
     # one per stage-2 step; padding steps and eval-mode forwards add none.
     valid = tr.fd.valid.cpu().numpy()
     steps = sum(int(math.ceil(n / B)) for n in valid.sum(1)) * cfg.local_ep
     chunks = n_clients * int(math.ceil(valid.shape[1] / (4 * B)))
     n_stage2 = n_rounds - stage1_rounds
-    train_forwards = 2 * steps * stage1_rounds + steps * n_stage2
+
+    def view_launches(n_views: int) -> int:
+        return n_views if hoisted(tr, n_views) else n_views * steps
+
+    stage1_forwards = 1 if cfg.view_concat == "on" else 2
+    train_forwards = stage1_forwards * steps * stage1_rounds + steps * n_stage2
     dw = 16 * train_forwards if cfg.dw_backend == "pallas" else 0
     expected = {
-        "fused_warp_normalize": train_forwards + chunks + 2 * chunks * n_stage2,
+        "fused_warp_normalize": (stage1_rounds * view_launches(2)
+                                 + n_stage2 * view_launches(1)
+                                 + chunks + 2 * chunks * n_stage2),
         "dw_dgrad": dw, "dw_wgrad": dw,
     }
+    print(f"phase {path}: view_concat={cfg.view_concat} hoist_augment={cfg.hoist_augment}: "
+          f"stage 1 hoisted {hoisted(tr, 2)}, stage 2 hoisted {hoisted(tr, 1)}; "
+          f"{stage1_forwards} train forward(s) a stage-1 step")
     if count_eval:  # the test transform, one launch a chunk of 4B images
         expected["normalize_flip_cutout"] = int(math.ceil(len(tr.test_ds) / (4 * B)))
 
     reset_launch_counts()
-    losses, seconds = [], []
+    losses = []
     for rnd in range(n_rounds):
+        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         rec = tr.run_round(rnd)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
-        seconds.append(secs)
         losses.extend(rec.client_losses)
+        ROUND_SECONDS.setdefault(path, []).append(secs)
         print(f"phase {path}: round {rnd} (stage {1 if rnd < stage1_rounds else 2}) "
               f"{secs:.3f} s {imgs_per_round / secs:.1f} img/s "
               f"mean loss {sum(rec.client_losses) / n_clients:.5f} "
-              f"dw_backend={cfg.dw_backend or 'conv'} [{card}]")
+              f"dw_backend={cfg.dw_backend or 'conv'} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if not count_eval:
         launches = read_launch_counts()
     metrics = tr.evaluate()
@@ -1091,26 +1240,51 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
                          f"{feature_dim_of(cfg.model)}")
     print(f"phase {path}: tagged cells {int((tr.server_state['tags'] > 0).sum())}")
     check_launches(path, launches, expected)
-    return launches, seconds
+    return launches
 
 
-def phase_slice(dev, card: str) -> tuple[dict, list]:
+def phase_slice(dev, card: str) -> dict:
     """Two stage-1 rounds (the second harvests) and one stage-2 round at the
     flagship geometry, default depthwise backend."""
     return run_flagship("slice", dev, card, flagship_config(K, N), 2, 3)
 
 
-def phase_slice_dw(dev, card: str, conv_seconds) -> dict:
+def phase_slice_dw(dev, card: str) -> dict:
     """The same geometry with ``dw_backend='pallas'``: one stage-1 round
     (which harvests) and one stage-2 round, the depthwise backward through
     ``dw_dgrad`` and ``dw_wgrad``."""
-    launches, secs = run_flagship(
+    launches = run_flagship(
         "slice_dw", dev, card, flagship_config(K, N, 1, "pallas"), 1, 2)
+    secs, conv_seconds = ROUND_SECONDS["slice_dw"], ROUND_SECONDS.get("slice")
     if conv_seconds:
         print(f"phase slice_dw: stage 1 + harvest {secs[0]:.3f} s, stage 2 "
               f"{secs[1]:.3f} s with dw_backend='pallas'; default backend "
               f"{conv_seconds[1]:.3f} s and {conv_seconds[2]:.3f} s (phase slice, "
               f"rounds 1 and 2) [{card}]")
+    return launches
+
+
+def phase_slice_views(dev, card: str) -> dict:
+    """The flagship geometry with ``dw_backend='pallas'``, ``view_concat=
+    'on'`` and ``hoist_augment=1``: two stage-1 rounds (one 2B forward a
+    step; not hoisted, 5120 view images) and one stage-2 round (hoisted:
+    its 2560 views in one launch). Each round beside ``slice``'s and
+    ``slice_dw``'s of the same stage from this run."""
+    cfg = flagship_config(K, N, 2, "pallas", view_concat="on", hoist_augment=1)
+    launches = run_flagship("slice_views", dev, card, cfg, 2, 3)
+    secs = ROUND_SECONDS["slice_views"]
+    slice_seconds, dw_seconds = ROUND_SECONDS.get("slice"), ROUND_SECONDS.get("slice_dw")
+    imgs = N  # every client's images, once a round
+    for rnd, t in enumerate(secs):
+        stage = 1 if rnd < 2 else 2
+        base = [f"slice round {rnd} {slice_seconds[rnd]:.3f} s "
+                f"({imgs / slice_seconds[rnd]:.1f} img/s)"] if slice_seconds else []
+        if dw_seconds:
+            j = 0 if stage == 1 else 1
+            base.append(f"slice_dw round {j} ({'stage 1 + harvest' if j == 0 else 'stage 2'}) "
+                        f"{dw_seconds[j]:.3f} s ({imgs / dw_seconds[j]:.1f} img/s)")
+        print(f"phase slice_views: round {rnd} (stage {stage}) {t:.3f} s "
+              f"({imgs / t:.1f} img/s) beside {'; '.join(base) or 'nothing'} [{card}]")
     return launches
 
 
@@ -1142,8 +1316,8 @@ def phase_slice_resnet18(dev, card: str) -> dict:
               f"images at {SIZE} px written in {t1 - t0:.2f} s, mapped back in "
               f"{time.perf_counter() - t1:.3f} s")
         # a stage-2 step mixes its one weak view after the warp: one launch
-        launches, _ = run_flagship("slice_resnet18", dev, card, cfg, 2, 3,
-                                   datasets=(train_ds, test_ds), count_eval=True)
+        launches = run_flagship("slice_resnet18", dev, card, cfg, 2, 3,
+                                datasets=(train_ds, test_ds), count_eval=True)
     return launches
 
 
@@ -1266,14 +1440,17 @@ def run_rounds(path: str, card: str, tr, n_rounds: int) -> list:
     imgs_per_round = int(tr.fd.valid.sum().item()) * tr.cfg.local_ep
     seconds = []
     for rnd in range(n_rounds):
+        torch.cuda.reset_peak_memory_stats()
         t1 = time.perf_counter()
         rec = tr.run_round(rnd)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t1
         seconds.append(secs)
+        ROUND_SECONDS.setdefault(path, []).append(secs)
         print(f"phase {path}: round {rnd} {secs:.3f} s {imgs_per_round / secs:.1f} img/s "
               f"mean loss {sum(rec.client_losses) / tr.n_clients:.5f}"
-              f"{' evaluation included' if rec.metrics else ''} [{card}]")
+              f"{' evaluation included' if rec.metrics else ''} peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
         if not all(math.isfinite(x) for x in rec.client_losses):
             raise SystemExit(f"{path}: non-finite client losses {rec.client_losses}")
     if not rec.metrics or not all(math.isfinite(v) for v in rec.metrics.values()):
@@ -1334,6 +1511,91 @@ def phase_slice_strong(dev, card: str) -> dict:
     if not ((tao >= 0.55) & (tao <= 0.95)).all():
         raise SystemExit(f"slice_cbafed: tao outside [0.55, 0.95]: {tao}")
     return {"slice_strong": fixmatch, "slice_cbafed": cbafed}
+
+
+# the card's view against the CPU's on the same draws, the largest
+# difference over the largest magnitude: the bilinear warps take their cos
+# and sin in float64 and sharpness smooths in float64, so both run the same
+# float32 operations and differ only where a reduction (contrast's mean)
+# orders its sum otherwise
+VIEW_REL_TOL = 1e-4
+
+
+def phase_slice_preaug(dev, card: str) -> dict:
+    """FedAVG+FixMatch, one round of 20 clients and the evaluation, with
+    ``pre_augment=256``: before the round, the weak views of its S·K·B
+    positions in one warp launch a 256-image chunk and the strong views in
+    nine shear passes a chunk. Then (outside the counted span) the views of
+    one round plan made with chunk=256 and chunk=2560 from one generator
+    state, and RandAugmentPC and ``augment_pair`` (B=32, 224 px) on the card
+    and on the CPU on the same draws."""
+    from fedmlp_tpu_torch.ops import augment
+    from fedmlp_tpu_torch.parallel import fl_runtime as rt
+
+    chunk = 256
+
+    def expected(tr):
+        n_chunks = int(math.ceil(views_positions(tr) / chunk))
+        return {"fused_warp_normalize": n_chunks, "hshift_rows": 9 * n_chunks,
+                "bce_with_logits_masked_sum": 2 * client_steps(tr),
+                "bce_with_logits_masked_grad": 2 * client_steps(tr),
+                "normalize_flip_cutout": 1}
+
+    tr, launches = run_path("slice_preaug", dev, card,
+                            strong_config("fixmatch", K, 1, pre_augment=chunk), 1, expected)
+    strong = ROUND_SECONDS.get("slice_strong")
+    print(f"phase slice_preaug: {views_positions(tr)} view positions in chunks of {chunk}; "
+          f"round {ROUND_SECONDS['slice_preaug'][0]:.3f} s beside slice_strong's (views "
+          f"in the step) {f'{strong[0]:.3f} s' if strong else 'not run'} [{card}]")
+
+    pos, _, _ = rt.make_batch_plan(np.random.RandomState(0), tr.fd.valid.cpu().numpy(), B, 1)
+    imgs = rt.gather_round_images(tr.fd.images, tr.fd.idx, pos)
+    state = tr.generator.get_state()
+    made = {}
+    for c in (chunk, int(np.prod(pos.shape))):
+        tr.generator.set_state(state)
+        made[c] = rt.pre_augment_views(imgs, tr.generator, view_mode="weak_strong",
+                                       augment_backend="auto", mean=MEAN, std=STD, chunk=c)
+    a, b = made.values()
+    x2_diff = (a["x2"] - b["x2"]).abs()
+    n_x2 = int((x2_diff > 0).sum())
+    x2_max = float(x2_diff.max())
+    x1_equal = torch.equal(a["x1"], b["x1"])
+    print(f"phase slice_preaug: views of {int(np.prod(pos.shape))} positions, chunk={chunk} "
+          f"against one chunk: x1 equal bits {x1_equal}; x2 equal bits {n_x2 == 0}, "
+          f"{n_x2} of {a['x2'].numel()} values differ, largest {x2_max:.3e} (tol 1e-5)")
+    if not x1_equal or not x2_max <= 1e-5:
+        raise SystemExit("slice_preaug: chunked views differ from one chunk")
+    del made, a, b, x2_diff
+
+    g = torch.Generator().manual_seed(1037)
+    imgs_cpu = torch.randint(0, 256, (B, SIZE, SIZE, 3), generator=g, dtype=torch.uint8)
+    pc = augment.randaugment_pc_params(B, SIZE, SIZE, g, "cpu")
+    p1 = augment.weak_draws(B, SIZE, SIZE, g, "cpu")
+    p2 = {mode: (augment.weak_draws if mode == "dual_weak" else augment.strong_params)(
+        B, SIZE, SIZE, g, "cpu") for mode in augment.PAIR_MODES}
+
+    def both(fn):
+        on_card = fn(lambda t: t.to(dev))
+        on_cpu = fn(lambda t: t)
+        return [_rel_err(x, y) for x, y in zip(on_card, on_cpu)]
+
+    def to(move, p):
+        return {k: move(v) for k, v in p.items()}
+
+    errs = {"randaugment_pc": both(lambda m: [augment.randaugment_pc_from_params(
+        m(augment.planar_f32(imgs_cpu)), to(m, pc))])}
+    for mode in augment.PAIR_MODES:
+        errs[f"augment_pair {mode}"] = both(lambda m, mode=mode: augment.augment_pair_from_params(
+            m(imgs_cpu), to(m, p1), to(m, p2[mode]), MEAN, STD, mode))
+    ops = sorted(set(pc["op_idx"][pc["do"]].tolist()))
+    print(f"phase slice_preaug: card vs CPU on the same draws, B={B} {SIZE} px, largest "
+          f"difference over the largest magnitude: "
+          + ", ".join(f"{k} {' '.join(f'{e:.3e}' for e in v)}" for k, v in errs.items())
+          + f" (tol {VIEW_REL_TOL}; RandAugmentPC ops applied {ops})")
+    if not all(e <= VIEW_REL_TOL for v in errs.values() for e in v):
+        raise SystemExit(f"slice_preaug: card and CPU views disagree: {errs}")
+    return launches
 
 
 def phase_probe_convbn(card: str) -> dict:
@@ -1812,7 +2074,46 @@ _PATH_KERNELS = {
     "slice_centralized": ("fused_warp_normalize", "normalize_flip_cutout"),
     "slice_resnet18": ("fused_warp_normalize", "normalize_flip_cutout"),
     "models_zoo": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_views": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad"),
+    "slice_preaug": ("fused_warp_normalize", "hshift_rows", "bce_with_logits_masked_sum",
+                     "bce_with_logits_masked_grad", "normalize_flip_cutout"),
 }
+
+
+def phase_time_views(dev, card: str) -> None:
+    """Where the views are made, A against B in one call: trainers that
+    differ in one knob, their rounds run in turns (the same round index on
+    each before the next), so host noise falls on all of them alike. The
+    flagship (``dw_backend='pallas'``, 2 stage-1 + 2 stage-2 rounds):
+    views in the step, two forwards a stage-1 step; ``view_concat='on'``;
+    and ``view_concat='on'`` with ``hoist_augment=1`` (stage 2 hoisted).
+    FixMatch at slice_strong's geometry, 3 rounds: views in the step and
+    ``pre_augment=256``. Seconds and peak memory of each round."""
+    from fedmlp_tpu_torch.train import Trainer
+
+    runs = {
+        "flagship": ({"in-step": {}, "view_concat": {"view_concat": "on"},
+                      "view_concat+hoist": {"view_concat": "on", "hoist_augment": 1}},
+                     lambda kw: flagship_config(K, N, 2, "pallas", **kw), 4),
+        "fixmatch": ({"in-step": {}, "pre_augment=256": {"pre_augment": 256}},
+                     lambda kw: strong_config("fixmatch", K, 10**6, **kw), 3),
+    }
+    for family, (variants, make_cfg, n_rounds) in runs.items():
+        trainers = {name: Trainer(make_cfg(kw), device=dev) for name, kw in variants.items()}
+        for rnd in range(n_rounds):
+            line = []
+            for name, tr in trainers.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                tr.run_round(rnd)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                line.append(f"{name} {secs:.3f} s ({N / secs:.1f} img/s, "
+                            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+            print(f"phase time_views [{family}] round {rnd}: {'; '.join(line)} [{card}]")
+        del trainers
+        torch.cuda.empty_cache()
 
 
 def phase_profile_convbn(dev, card: str) -> None:
@@ -1861,10 +2162,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
-                                        "slice_resnet18,models_zoo",
+                                        "slice_resnet18,models_zoo,slice_views,"
+                                        "slice_preaug",
                     help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
                          "probe_convbn,slice_fednoro,slice_baselines,slice_resnet18,"
-                         "models_zoo,profile,profile_strong,profile_convbn,time_b5b6")
+                         "models_zoo,slice_views,slice_preaug,profile,profile_strong,"
+                         "profile_convbn,time_b5b6,time_views")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -1884,11 +2187,11 @@ def main(argv=None) -> int:
         kernels.append(phase_kernel_preproc(dev))
         kernels.extend(phase_kernel_bce(dev))
         kernels.extend(phase_kernel_conv_bn(dev))
-    by_path, conv_seconds = {}, None
+    by_path = {}
     if "slice" in phases:
-        by_path["slice"], conv_seconds = phase_slice(dev, card)
+        by_path["slice"] = phase_slice(dev, card)
     if "slice_dw" in phases:
-        by_path["slice_dw"] = phase_slice_dw(dev, card, conv_seconds)
+        by_path["slice_dw"] = phase_slice_dw(dev, card)
     if "cli" in phases:
         by_path["cli"] = phase_cli(dev, card)
     if "slice_strong" in phases:
@@ -1903,6 +2206,10 @@ def main(argv=None) -> int:
         by_path["slice_resnet18"] = phase_slice_resnet18(dev, card)
     if "models_zoo" in phases:
         by_path["models_zoo"] = phase_models_zoo(dev, card)
+    if "slice_views" in phases:
+        by_path["slice_views"] = phase_slice_views(dev, card)
+    if "slice_preaug" in phases:
+        by_path["slice_preaug"] = phase_slice_preaug(dev, card)
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:
@@ -1919,6 +2226,8 @@ def main(argv=None) -> int:
         phase_profile_convbn(dev, card)
     if "time_b5b6" in phases:
         phase_time_b5b6(dev, card)
+    if "time_views" in phases:
+        phase_time_views(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -100,6 +100,7 @@ def _get_pseudo_fn(trainer):
             view_mode="single",
             augment_backend=trainer.cfg.data.augment_backend,
             compute_dtype=trainer.cfg.compute_dtype,
+            hoist_augment=bool(trainer.cfg.hoist_augment),
         )
     return trainer._cbafed_pseudo_fn
 

@@ -124,6 +124,7 @@ def _get_relation_fn(trainer):
             teacher_iter_corrected=True, teacher_scope="params",
             augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, teacher_model=trainer.teacher_model,
+            hoist_augment=bool(cfg.hoist_augment),
         )
     return trainer._fedirm_rel_fn
 

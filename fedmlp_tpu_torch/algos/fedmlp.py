@@ -42,9 +42,23 @@ NEEDS_GLOBAL = True
 # ----------------------------------------------------------------------
 
 def loss_fn(model, views, sample, svalid, ctx, generator, scalars):
-    labels = sample["labels"]
     _, logits1 = apply_train(model, views["x1"], generator)
     _, logits2 = apply_train(model, views["x2"], generator)
+    return _stage1_loss(logits1, logits2, views, sample, svalid, ctx)
+
+
+def loss_fn_viewcat(model, views, sample, svalid, ctx, generator, scalars):
+    """Stage-1 loss with the two weak views run as ONE 2B forward
+    (``view_concat='on'``): the same loss as ``loss_fn``, but the batch-norm
+    statistics are taken over the joint 2B batch and the running statistics
+    update once a step instead of twice."""
+    _, logits = apply_train(model, torch.cat([views["x1"], views["x2"]]), generator)
+    logits1, logits2 = logits.chunk(2)
+    return _stage1_loss(logits1, logits2, views, sample, svalid, ctx)
+
+
+def _stage1_loss(logits1, logits2, views, sample, svalid, ctx):
+    labels = sample["labels"]
     p1 = torch.sigmoid(logits1.float())
     p2 = torch.sigmoid(logits2.float())
     B = logits1.shape[0]
@@ -61,13 +75,16 @@ def loss_fn(model, views, sample, svalid, ctx, generator, scalars):
 
 
 # ----------------------------------------------------------------------
-# Stage-2 loss: supervised-only on view 1 over confident cells
+# Stage-2 loss: supervised-only on view 1 over confident cells. A round
+# with views made before it (pre_augment) brings the algorithm's two views:
+# view 1 is then 'x1'.
 # ----------------------------------------------------------------------
 
 def stage2_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
     labels = sample["labels"]
     supmask = sample["supmask"]  # [B, C] — active ∪ tagged classes
-    _, logits1 = apply_train(model, views["x"], generator)
+    _, logits1 = apply_train(model, views["x"] if "x" in views else views["x1"],
+                             generator)
     p1 = torch.sigmoid(logits1.float())
     cell = supmask * svalid.to(supmask.dtype)[:, None]
     sup = L.bce_on_probs(p1, labels) * cell
@@ -93,7 +110,7 @@ def stage2_mixup_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
     lam · L(p, y_a | cell_a) / |cell_a| + (1 − lam) · L(p, y_b | cell_b) / |cell_b|."""
     labels = sample["labels"]
     supmask = sample["supmask"]
-    x1 = views["x"]
+    x1 = views["x"] if "x" in views else views["x1"]
     lam, perm = draw_mixup(generator, x1.shape[0], x1.device)
     _, logits1 = apply_train(model, mixup_images(x1, lam, perm), generator)
     p1 = torch.sigmoid(logits1.float())
@@ -232,6 +249,7 @@ def _get_stage2_fn(trainer):
             augment_backend=trainer.cfg.data.augment_backend,
             compute_dtype=trainer.cfg.compute_dtype,
             global_model=trainer.global_model,
+            hoist_augment=bool(trainer.cfg.hoist_augment),
         )
     return trainer._fedmlp_stage2_fn
 

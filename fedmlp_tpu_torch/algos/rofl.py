@@ -149,7 +149,7 @@ def _get_fns(trainer):
             trainer.model, loss_fn, lr=cfg.base_lr, batch_size=cfg.batch_size,
             mean=cfg.data.mean, std=cfg.data.std, view_mode="single",
             post_step=post_step, augment_backend=cfg.data.augment_backend,
-            compute_dtype=cfg.compute_dtype,
+            compute_dtype=cfg.compute_dtype, hoist_augment=bool(cfg.hoist_augment),
         )
         trainer._rofl_harvest = rt.make_harvest_fn(
             trainer.model, cfg.data.mean, cfg.data.std, batch_size=cfg.batch_size * 4,

@@ -57,6 +57,7 @@ def _get_round_fn(trainer):
             teacher_decay=TEACHER_DECAY, teacher_scope="all",
             augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, teacher_model=trainer.teacher_model,
+            hoist_augment=bool(cfg.hoist_augment),
         )
     return trainer._rscfed_round_fn
 

@@ -14,8 +14,17 @@ maps per-image functions on [H, W, 3] over the batch: every op here takes the
 batch [B, 3, H, W] and per-image parameters [B].
 
 Random draws are apart from the arithmetic: ``weak_params`` /
-``strong_params`` draw from a ``torch.Generator``, the ``*_from_params``
-functions apply given draws (the tests feed them the JAX package's).
+``strong_params`` / ``randaugment_pc_params`` draw from a
+``torch.Generator``, the ``*_from_params`` functions apply given draws (the
+tests feed them the JAX package's). ``view_backend`` names both halves of a
+view by backend, so that a round's draws can all be made before any is
+applied (``parallel/fl_runtime.py::pre_augment_views``).
+
+The bilinear warps take cos and sin in float64, rounded once to float32, and
+sharpness smooths in float64: a view made from the same draws then has the
+same bits on the CPU and on the card, where a last-place difference before a
+quantizing op (posterize, equalize, a solarize threshold) could move a pixel
+by whole gray levels.
 
 The JAX package computes every branch of a RandAugment layer and selects
 (``lax.switch`` under ``vmap``). So does ``randaugment_op``: all nine
@@ -37,8 +46,8 @@ from fedmlp_tpu_torch.ops.warp import (
     paeth_affine,
     paeth_shift_vectors,
     planar_f32,
-    weak_augment_batch_fused,
-    weak_augment_batch_paeth,
+    weak_augment_batch_fused_from_params,
+    weak_augment_batch_paeth_from_params,
     weak_params,
 )
 
@@ -99,6 +108,14 @@ def affine_warp(img, inv_mat, fill: float = 0.0):
     return _bilinear_sample(img, src_x, src_y, fill)
 
 
+def _cos_sin(theta):
+    """(cos θ, sin θ) f32, each computed in float64 and rounded once: the
+    same bits on every device (float32 sin and cos of the CPU and of the
+    card differ in the last place for some angles)."""
+    t = theta.double()
+    return torch.cos(t).float(), torch.sin(t).float()
+
+
 def _center_affine(H: int, W: int, a, b, d, e, tx=0.0, ty=0.0):
     """Inverse 2x3 matrices [B, 2, 3] for a linear map about the image
     center plus a translation (in output coords); a, b, d, e f32 [B]."""
@@ -111,8 +128,7 @@ def _center_affine(H: int, W: int, a, b, d, e, tx=0.0, ty=0.0):
 def random_affine_from_params(img, ang, tx, ty):
     """torchvision RandomAffine as one bilinear warp: rotation ``ang``
     (degrees) about the center and translation (tx, ty), each [B]."""
-    th = torch.deg2rad(ang)
-    cos, sin = torch.cos(th), torch.sin(th)
+    cos, sin = _cos_sin(torch.deg2rad(ang))
     return affine_warp(img, _center_affine(img.shape[2], img.shape[3],
                                            cos, -sin, sin, cos, tx, ty))
 
@@ -165,12 +181,14 @@ def contrast(img, v):
 
 def sharpness(img, v):
     """ImageEnhance.Sharpness: blend with the SMOOTH-filtered image (3x3
-    kernel [[1,1,1],[1,5,1],[1,1,1]]/13, the 1-pixel border kept)."""
+    kernel [[1,1,1],[1,5,1],[1,1,1]]/13, the 1-pixel border kept). The
+    filter sums in float64 and rounds once, so that its bits do not depend
+    on the device's summation order."""
     B, C, H, W = img.shape
-    kernel = torch.tensor([[1, 1, 1], [1, 5, 1], [1, 1, 1]], dtype=torch.float32,
+    kernel = torch.tensor([[1, 1, 1], [1, 5, 1], [1, 1, 1]], dtype=torch.float64,
                           device=img.device) / 13.0
-    smoothed = F.conv2d(img.reshape(B * C, 1, H, W), kernel[None, None],
-                        padding=1).reshape(B, C, H, W)
+    smoothed = F.conv2d(img.reshape(B * C, 1, H, W).double(), kernel[None, None],
+                        padding=1).float().reshape(B, C, H, W)
     ys = torch.arange(H, device=img.device)[:, None]
     xs = torch.arange(W, device=img.device)[None, :]
     border = (ys == 0) | (ys == H - 1) | (xs == 0) | (xs == W - 1)
@@ -272,7 +290,7 @@ def _geo_matrices(H: int, W: int, neg, v, translate_frac: float):
     identity. Order: rotate, shear_x, shear_y, translate_x, translate_y,
     identity."""
     th, sv, px, py = _geo_magnitudes(neg, v, translate_frac, H, W)
-    cos, sin = torch.cos(th), torch.sin(th)
+    cos, sin = _cos_sin(th)
     one, zero = torch.ones_like(v), torch.zeros_like(v)
 
     def mat(a, b, c, d, e, f):
@@ -428,6 +446,94 @@ def strong_augment_batch(images_u8, generator: torch.Generator, mean, std,
 
 
 # ----------------------------------------------------------------------
+# RandAugmentPC (utils/FixMatch.py:187-202): n ops of my_augment_pool at a
+# fixed magnitude, each where random() + U(0.2, 0.8) >= 1, + Cutout(16)
+# ----------------------------------------------------------------------
+
+# my_augment_pool (utils/FixMatch.py:166-184): 0 AutoContrast, 1 Brightness,
+# 2 Color, 3 Contrast, 4 Cutout, 5 Equalize, 6 Invert, 7 Posterize, 8 Rotate,
+# 9 Sharpness, 10 ShearX, 11 ShearY, 12 Solarize, 13 SolarizeAdd,
+# 14 TranslateX, 15 TranslateY. op_idx → geometric slot (5 = identity) and →
+# photometric branch (11 = identity)
+_PC_GEO_SLOT = (5, 5, 5, 5, 5, 5, 5, 5, 0, 5, 1, 2, 5, 5, 3, 4)
+_PC_PHO_SLOT = (0, 1, 2, 3, 4, 5, 6, 7, 11, 8, 11, 11, 9, 10, 11, 11)
+
+
+def randaugment_pc_op(img, op_idx, neg, op_cut_x, op_cut_y, m: int = 10):
+    """One op of my_augment_pool per image at the fixed magnitude ``m``:
+    ``op_idx`` int [B] in [0, 16), ``neg`` bool [B] the op's one sign draw
+    (it signs the geometric ops and SolarizeAdd's shift), (``op_cut_x``,
+    ``op_cut_y``) [B] the center of the Cutout op's box. The PC scaling:
+    blends at 1.8·m/10 + 0.1, translations of 0.45·m/10 of the side, a box
+    of side ⌊0.2·m/10·min(H, W)⌋, (4m // 10) + 4 posterize bits. As in
+    ``randaugment_op``, the five geometric ops share one bilinear warp and
+    every photometric branch runs on the batch."""
+    B, _, H, W = img.shape
+    v = torch.full((B,), float(m), dtype=torch.float32, device=img.device)
+    gi = torch.tensor(_PC_GEO_SLOT, device=img.device)[op_idx]
+    geo_out = affine_warp(img, _select_slot(_geo_matrices(H, W, neg, v, 0.45), gi))
+    mag = v * 1.8 / PARAMETER_MAX + 0.1
+    box = float(torch.floor(torch.tensor(float(m)) * 0.2 / PARAMETER_MAX * min(H, W)))
+    branches = [
+        autocontrast(img),                                                  # 0
+        brightness(img, mag),                                               # 1
+        color(img, mag),                                                    # 2
+        contrast(img, mag),                                                 # 3
+        cutout_abs(img, op_cut_x, op_cut_y, box),                           # 4
+        equalize(img),                                                      # 5
+        invert(img),                                                        # 6
+        posterize(img, torch.div(v * 4, PARAMETER_MAX, rounding_mode="floor")
+                  .to(torch.int32) + 4),                                    # 7
+        sharpness(img, mag),                                                # 8
+        solarize(img, 256.0 - torch.floor(v * 256 / PARAMETER_MAX)),        # 9
+        solarize_add(img, _rand_sign(neg, torch.floor(v * 110 / PARAMETER_MAX))),  # 10
+    ]
+    pi = torch.tensor(_PC_PHO_SLOT, device=img.device)[op_idx]
+    out = torch.where(_per_image(gi != 5), geo_out, img)
+    for slot, branch in enumerate(branches):
+        out = torch.where(_per_image(pi == slot), branch, out)
+    return out
+
+
+def randaugment_pc_params(B: int, H: int, W: int, generator: torch.Generator, device,
+                          n: int = 2) -> dict:
+    """Per-image RandAugmentPC draws: per layer [n, B] ``op_idx`` ∈ [0, 16),
+    ``do`` (U + U(0.2, 0.8) ≥ 1), the op's sign ``neg`` and the Cutout op's
+    center ``op_cut_x`` ∈ [0, W), ``op_cut_y`` ∈ [0, H); the final box's
+    center ``cut_x``, ``cut_y`` [B]."""
+    u = torch.rand((6 * n + 2, B), generator=generator, device=device,
+                   dtype=torch.float32)
+    layers = u[:6 * n].reshape(n, 6, B)
+    n_ops = len(_PC_GEO_SLOT)
+    return {
+        "op_idx": torch.clamp((layers[:, 0] * n_ops).long(), max=n_ops - 1),
+        "do": layers[:, 1] + (layers[:, 2] * 0.6 + 0.2) >= 1.0,
+        "neg": layers[:, 3] < 0.5,
+        "op_cut_x": layers[:, 4] * W, "op_cut_y": layers[:, 5] * H,
+        "cut_x": u[6 * n] * W, "cut_y": u[6 * n + 1] * H,
+    }
+
+
+def randaugment_pc_from_params(img, params: dict, m: int = 10, cutout: float = 16):
+    """RandAugmentPC on a batch [B, 3, H, W] f32 0..255 on given draws
+    (``randaugment_pc_params``'s keys): layer i applies op ``op_idx[i]``
+    where ``do[i]``; then CutoutAbs at the drawn center. Calls no kernel."""
+    for i in range(params["op_idx"].shape[0]):
+        auged = randaugment_pc_op(img, params["op_idx"][i], params["neg"][i],
+                                  params["op_cut_x"][i], params["op_cut_y"][i], m)
+        img = torch.where(_per_image(params["do"][i]), auged, img)
+    return cutout_abs(img, params["cut_x"], params["cut_y"], cutout)
+
+
+def randaugment_pc(img, generator: torch.Generator, n: int = 2, m: int = 10,
+                   cutout: float = 16):
+    """RandAugmentPC(n, m) on a batch [B, 3, H, W] f32 0..255."""
+    B, _, H, W = img.shape
+    return randaugment_pc_from_params(
+        img, randaugment_pc_params(B, H, W, generator, img.device, n), m, cutout)
+
+
+# ----------------------------------------------------------------------
 # Backends by name
 # ----------------------------------------------------------------------
 
@@ -445,33 +551,93 @@ def _resolve_backend(augment_backend: str) -> str:
     return "fused" if augment_backend == "auto" else augment_backend
 
 
-def pick_weak_backend(augment_backend: str):
-    """Weak-view function ``(u8 NHWC, generator, mean, std) → f32 NCHW``:
+def weak_draws(B: int, H: int, W: int, generator: torch.Generator, device) -> dict:
+    """``weak_params`` as a dictionary: ``ang`` (degrees), ``tx``, ``ty``,
+    ``flip``, each [B]."""
+    ang, tx, ty, flip = weak_params(B, H, W, generator, device)
+    return {"ang": ang, "tx": tx, "ty": ty, "flip": flip}
+
+
+def _no_draws(B, H, W, generator, device) -> dict:
+    return {}
+
+
+def view_backend(augment_backend: str, kind: str):
+    """(draw, apply) of one view of ``kind`` 'weak' or 'strong':
+    ``draw(B, H, W, generator, device)`` → per-image parameters, the image
+    on the last axis of each; ``apply(images_u8, params, mean, std)`` → f32
+    NCHW. Weak views:
 
     * 'fused'    — one warp + normalize kernel (``fused_warp_normalize``)
     * 'pallas', 'paeth' — three ``hshift_rows`` passes, then flip and normalize
     * 'gather'   — one bilinear warp in stock tensor ops
-    * 'normonly' — diagnostic: normalize without warp or flip
-    """
+    * 'normonly' — diagnostic: normalize without warp or flip (no draws)
+
+    Strong views: 'pallas' and 'fused' (and so 'auto') run every warp
+    through ``hshift_rows`` (geo='shear'); 'normonly' normalizes only, so
+    that both views of a parity run are plain; the others use bilinear
+    warps."""
+    if kind not in ("weak", "strong"):
+        raise ValueError(f"unknown view kind {kind!r}")
     backend = _resolve_backend(augment_backend)
     if backend == "normonly":
-        return lambda imgs, generator, mean, std: eval_batch(imgs, mean, std)
-    if backend == "fused":
-        return weak_augment_batch_fused
-    if backend == "gather":
-        return weak_augment_batch
-    # 'pallas' and 'paeth' differ only in the strong view they pair with
-    return weak_augment_batch_paeth
+        return _no_draws, lambda imgs, p, mean, std: eval_batch(imgs, mean, std)
+    if kind == "strong":
+        geo = "shear" if backend in ("pallas", "fused") else "gather"
+        return strong_params, lambda imgs, p, mean, std: strong_augment_batch_from_params(
+            imgs, p, mean, std, geo=geo)
+    weak = {"fused": weak_augment_batch_fused_from_params,
+            "gather": weak_augment_batch_from_params}.get(
+        backend, weak_augment_batch_paeth_from_params)
+    return weak_draws, lambda imgs, p, mean, std: weak(imgs, **p, mean=mean, std=std)
+
+
+def _view_fn(draw, apply):
+    def view(images_u8, generator, mean, std):
+        B, H, W, _ = images_u8.shape
+        return apply(images_u8, draw(B, H, W, generator, images_u8.device), mean, std)
+    return view
+
+
+def pick_weak_backend(augment_backend: str):
+    """Weak-view function ``(u8 NHWC, generator, mean, std) → f32 NCHW`` of
+    ``view_backend``'s weak (draw, apply)."""
+    return _view_fn(*view_backend(augment_backend, "weak"))
 
 
 def pick_strong_backend(augment_backend: str):
-    """Strong-view function of the same signature: 'pallas' and 'fused'
-    (and so 'auto') run every warp through ``hshift_rows`` (geo='shear');
-    'normonly' normalizes only, so that both views of a parity run are
-    plain; the others use bilinear warps."""
-    backend = _resolve_backend(augment_backend)
-    if backend == "normonly":
-        return lambda imgs, generator, mean, std: eval_batch(imgs, mean, std)
-    geo = "shear" if backend in ("pallas", "fused") else "gather"
-    return lambda imgs, generator, mean, std: strong_augment_batch(
-        imgs, generator, mean, std, geo=geo)
+    """Strong-view function of the same signature."""
+    return _view_fn(*view_backend(augment_backend, "strong"))
+
+
+# ----------------------------------------------------------------------
+# Two views of one batch (reference image_aug_1/image_aug_2,
+# utils/local_training.py:935-936)
+# ----------------------------------------------------------------------
+
+PAIR_MODES = ("dual_weak", "weak_strong")
+
+
+def augment_pair_from_params(images_u8, p1: dict, p2: dict, mean, std,
+                             mode: str = "dual_weak"):
+    """Two views of a u8 NHWC batch on given draws: the 'gather' weak view
+    on ``p1`` (``weak_draws``' keys), and the 'gather' weak view (mode
+    'dual_weak') or strong view ('weak_strong', ``strong_params``' keys) on
+    ``p2``. Bilinear warps in stock tensor ops: no kernel."""
+    if mode not in PAIR_MODES:
+        raise ValueError(f"unknown augment_pair mode {mode!r}; have {PAIR_MODES}")
+    v1 = weak_augment_batch_from_params(images_u8, **p1, mean=mean, std=std)
+    if mode == "dual_weak":
+        return v1, weak_augment_batch_from_params(images_u8, **p2, mean=mean, std=std)
+    return v1, strong_augment_batch_from_params(images_u8, p2, mean, std, geo="gather")
+
+
+def augment_pair(images_u8, generator: torch.Generator, mean, std,
+                 mode: str = "dual_weak"):
+    """Two independently augmented views of a batch → (v1, v2), f32 NCHW:
+    the first view's draws, then the second's."""
+    B, H, W, _ = images_u8.shape
+    dev = images_u8.device
+    p1 = weak_draws(B, H, W, generator, dev)
+    p2 = (weak_draws if mode == "dual_weak" else strong_params)(B, H, W, generator, dev)
+    return augment_pair_from_params(images_u8, p1, p2, mean, std, mode)

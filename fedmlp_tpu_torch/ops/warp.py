@@ -313,12 +313,19 @@ def weak_augment_batch_fused(images_u8, generator: torch.Generator, mean, std,
     B, H, W, _ = images_u8.shape
     ang, tx, ty, flip = weak_params(B, H, W, generator, images_u8.device,
                                     degrees, translate)
+    return weak_augment_batch_fused_from_params(images_u8, ang, tx, ty, flip,
+                                                mean, std)
+
+
+def weak_augment_batch_fused_from_params(images_u8, ang, tx, ty, flip, mean, std):
+    """``weak_augment_batch_fused`` on given draws (θ in degrees, tx, ty,
+    flip, each [B]): one ``fused_warp_normalize`` launch."""
+    H, W = images_u8.shape[1], images_u8.shape[2]
     ang = torch.where(flip, -ang, ang)
     tx = torch.where(flip, -tx, tx)
     params = paeth_shift_params(torch.deg2rad(ang), tx, ty, H, W).contiguous()
     return fused_warp_normalize(images_u8.contiguous(), params,
                                 flip.contiguous(), mean, std)
-
 
 
 def planar_f32(images_u8: torch.Tensor) -> torch.Tensor:

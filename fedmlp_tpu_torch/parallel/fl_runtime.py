@@ -140,6 +140,56 @@ def make_batch_plan(rng: np.random.RandomState, valid: np.ndarray,
     return pos, pos_valid, steps
 
 
+def gather_round_images(images: torch.Tensor, idx: torch.Tensor, pos) -> torch.Tensor:
+    """(images u8 [N, H, W, 3], idx [K, M], pos [S, K, B]) → the round's
+    images u8 [S, K, B, H, W, 3], padding positions included (the JAX
+    package's ``gather_round_data``)."""
+    pos = torch.as_tensor(pos, dtype=torch.int64, device=idx.device)
+    return images[idx[torch.arange(idx.shape[0], device=idx.device)[None, :, None], pos]]
+
+
+def pre_augment_views(imgs: torch.Tensor, generator: torch.Generator, *, view_mode: str,
+                      augment_backend: str, mean, std, chunk: int = 256) -> dict:
+    """Every view of a round, made before its first step: imgs u8
+    [S, K, B, H, W, 3] → {'x'} (view_mode 'single') or {'x1', 'x2'} ('dual':
+    two weak views; 'weak_strong': a weak and a strong one), f32
+    [S, K, B, 3, H, W], for every plan position, padding included.
+
+    All N = S·K·B images' draws come first (the weak draws of 'x' or 'x1',
+    then those of 'x2'), then the views are made ``chunk`` images at a time
+    from them, so the result does not depend on ``chunk``: the same bits as
+    one call over all N, which is what ``make_local_round``'s hoist makes.
+    (The JAX package derives the same per-image key tables for every chunk
+    and pads the last one to keep one compiled shape; nothing here needs
+    padding.)"""
+    if view_mode not in ("single", "dual", "weak_strong"):
+        raise ValueError(f"unknown view_mode {view_mode!r}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    S, K, B, H, W = imgs.shape[:5]
+    N = S * K * B
+    flat = imgs.reshape((N,) + imgs.shape[3:])
+    kinds = {"single": {"x": "weak"}, "dual": {"x1": "weak", "x2": "weak"},
+             "weak_strong": {"x1": "weak", "x2": "strong"}}[view_mode]
+    backends = {name: A.view_backend(augment_backend, kind) for name, kind in kinds.items()}
+    draws = {name: draw(N, H, W, generator, imgs.device)
+             for name, (draw, _) in backends.items()}
+    views = {}
+    for name, (_, apply) in backends.items():
+        parts = [apply(flat[c:c + chunk],
+                       {n: t[..., c:c + chunk] for n, t in draws[name].items()}, mean, std)
+                 for c in range(0, N, chunk)]
+        v = parts[0] if len(parts) == 1 else torch.cat(parts)
+        views[name] = v.reshape((S, K, B) + v.shape[1:])
+    return views
+
+
+# Most view images a round hoists (S·K·B·views): the JAX package's rule
+# (fedmlp_tpu/parallel/fl_runtime.py:712-730). Whether a round was hoisted
+# decides the order of the generator's draws, so it is part of the knob.
+HOIST_MAX_VIEWS = 4096
+
+
 def broadcast_to_clients(variables: dict, n_clients: int) -> dict:
     """Global variables as a client-stacked dict [K, ...] (expanded views,
     no copies): the reference's per-client deepcopy(netglob)."""
@@ -161,7 +211,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                      teacher_scope: str = "all", post_step=None,
                      augment_backend: str = "auto",
                      compute_dtype: str = "float32", global_model=None,
-                     teacher_model=None):
+                     teacher_model=None, hoist_augment: bool = False):
     """A function running one local round for every client in turn.
 
     ``loss_fn(model, views, sample, svalid, ctx, generator, scalars) ->
@@ -194,11 +244,19 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     after every real step. The JAX package runs it on padding steps too,
     with zeroed aux, which leaves RoFL's state as it was.
 
+    Views are made in the step from the step's images, unless the plan
+    brings them, or ``hoist_augment`` is set and the round has at most
+    ``HOIST_MAX_VIEWS`` view images: then the round first makes all of them
+    with ``pre_augment_views`` (one call, its draws before any step's), and
+    step s of client k reads entry [s, k].
+
     ``round_fn(global_vars, data, plan, scalars, generator, extra_state)``
     takes
       data = {'images' u8 [N,H,W,3], 'idx' [K,M], 'ctx' {name: [K, ...]}}
       plan = {'pos' [S,K,B], 'pos_valid' [S,K,B] (numpy), 'sample'
-              {name: [K, M, ...]}, 'iter0' (the lifetime step count)}
+              {name: [K, M, ...]}, 'iter0' (the lifetime step count),
+              optionally 'views' {name: f32 [S,K,B,3,H,W]}, the round's
+              views made before it (``pre_augment_views``)}
       extra_state = None or {'teacher': {name: [K, ...]},
                              'cstate': {name: [K, ...]}}
     and returns ({'vars': client-stacked variables, plus 'teacher'/'cstate'
@@ -217,6 +275,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     second = (A.pick_strong_backend(augment_backend) if view_mode == "weak_strong"
               else weak)
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
+    n_views = 1 if view_mode == "single" else 2
 
     def augment_views(imgs_u8, generator):
         if view_mode == "single":
@@ -253,6 +312,12 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                              "and one without takes none")
         iter0 = int(plan.get("iter0", 0))
         pos_d = torch.as_tensor(pos, dtype=torch.int64, device=device)
+        made = plan.get("views")
+        if made is None and hoist_augment and S * K * B * n_views <= HOIST_MAX_VIEWS:
+            made = pre_augment_views(
+                gather_round_images(data["images"], data["idx"], pos_d), generator,
+                view_mode=view_mode, augment_backend=augment_backend, mean=mean,
+                std=std, chunk=S * K * B)
         valid_d = torch.as_tensor(pos_valid, device=device)
         cast = autocast(device, compute_dtype)
         if needs_global:
@@ -287,10 +352,12 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                 if not pos_valid[s, k].any():
                     continue  # padding step: a true no-op
                 p = pos_d[s, k]
-                imgs = data["images"][data["idx"][k, p]]
                 sample = {n: t[k, p] for n, t in plan["sample"].items()}
                 sample["_pos"] = p
-                views = augment_views(imgs, generator)
+                if made is None:
+                    views = augment_views(data["images"][data["idx"][k, p]], generator)
+                else:
+                    views = {n: v[s, k] for n, v in made.items()}
                 with cast:
                     with torch.no_grad():
                         if needs_global:

@@ -50,7 +50,8 @@ def check_ported(cfg: Config) -> None:
     ``Config`` value that selects an algorithm, model, backend or engine of
     the JAX package that the port has not got. 'auto' and empty values
     resolve to what the port does: the per-client loop engine, separate
-    forwards per view, device-resident data, grouped-conv depthwise."""
+    forwards per view, views made in the step, device-resident data,
+    grouped-conv depthwise."""
     bad = []
 
     def need(ok: bool, field_name: str, value, have: str) -> None:
@@ -67,16 +68,11 @@ def check_ported(cfg: Config) -> None:
          cfg.client_stacking, "the channel-stacked engine is not ported")
     need(cfg.batched_global in ("auto", "off"), "batched_global",
          cfg.batched_global, "the lockstep engine is not ported")
-    need(cfg.view_concat in ("auto", "off"), "view_concat", cfg.view_concat,
-         "views run as separate forwards")
     need(cfg.view_precat in ("auto", "off"), "view_precat", cfg.view_precat,
-         "views run as separate forwards")
+         "a lockstep-engine option; the lockstep engine is not ported")
     need(not cfg.weight_stream, "weight_stream", cfg.weight_stream, "have 0")
     need(not cfg.remat, "remat", cfg.remat, "have 0")
     need(not cfg.remat_stages, "remat_stages", cfg.remat_stages, "have ''")
-    need(cfg.pre_augment <= 0, "pre_augment", cfg.pre_augment,
-         "have -1 (auto) and 0: views are made inside the round")
-    need(not cfg.hoist_augment, "hoist_augment", cfg.hoist_augment, "have 0")
     need(cfg.scan_unroll == 1, "scan_unroll", cfg.scan_unroll, "have 1")
     need(not cfg.client_unroll, "client_unroll", cfg.client_unroll, "have 0")
     need(not cfg.small_pack, "small_pack", cfg.small_pack, "have 0")
@@ -93,6 +89,13 @@ def check_ported(cfg: Config) -> None:
          f"have {AUGMENT_BACKENDS}")
     need(cfg.mesh.data_axis == 1 and cfg.mesh.client_axis in (-1, 1),
          "mesh", cfg.mesh, "one device")
+    if cfg.algorithm == "fedmlp" and cfg.fedmlp.stage2_distill and cfg.pre_augment > 0:
+        # the pre-made views are the algorithm's two ('x1', 'x2'); the stage-2
+        # distillation term reads the single view's frozen-global logits,
+        # where the JAX package fails (fedmlp_tpu/parallel/fl_runtime.py:547-549)
+        bad.append(f"fedmlp.stage2_distill=True with pre_augment={cfg.pre_augment} "
+                   "is refused: stage 2's distillation needs its single view, and "
+                   "pre-made views are the algorithm's two")
     if bad:
         raise UnportedConfigError("; ".join(bad))
 
@@ -207,13 +210,21 @@ class Trainer:
                              else None)
         self.teacher_model = (self._frozen_twin()
                               if getattr(self.algo, "NEEDS_TEACHER", False) else None)
+        # 'auto' is off: the JAX package turns it on only on a TPU
+        # (fedmlp_tpu/train.py:200-211)
+        loss_fn = self.algo.loss_fn
+        if cfg.view_concat == "on" and hasattr(self.algo, "loss_fn_viewcat"):
+            loss_fn = self.algo.loss_fn_viewcat
+            log.info("engine: dual views concatenated into one 2B forward")
+        self._pre_augment_chunk = self._resolve_pre_augment(cfg)
         self.round_fn = rt.make_local_round(
-            self.model, self.algo.loss_fn,
+            self.model, loss_fn,
             lr=cfg.base_lr, batch_size=cfg.batch_size,
             mean=cfg.data.mean, std=cfg.data.std,
             view_mode=self.algo.VIEW_MODE, needs_global=self.algo.NEEDS_GLOBAL,
             augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, global_model=self.global_model,
+            hoist_augment=bool(cfg.hoist_augment),
         )
         self.server_state = (
             self.algo.init_server_state(self)
@@ -234,6 +245,15 @@ class Trainer:
         cfg = self.cfg
         return build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None,
                            image_size=cfg.data.image_size)
+
+    @staticmethod
+    def _resolve_pre_augment(cfg: Config) -> int:
+        """Chunk size of the views made before each round (0: made in the
+        step). ``pre_augment`` > 0 gives it; -1 (auto) resolves to 0. The
+        JAX package's auto engages only on a TPU, to dodge a fault of its
+        worker (``fedmlp_tpu/train.py:369-398``); the card has no such
+        fault."""
+        return max(int(cfg.pre_augment), 0)
 
     def _frozen_twin(self):
         """A module of the model's architecture that takes no gradients."""
@@ -288,7 +308,9 @@ class Trainer:
         """One local-training pass for all clients with fresh batch plans;
         returns (state, mean_losses [K], aux sums {name: [K, ...]}).
         ``extra_state`` may carry 'teacher'/'cstate' entries for algorithms
-        that persist them; ``state`` then holds their new values."""
+        that persist them; ``state`` then holds their new values. With
+        ``pre_augment`` the round's views (the algorithm's ``VIEW_MODE``)
+        are made before the round, ``pre_augment`` images at a time."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
@@ -296,6 +318,11 @@ class Trainer:
                 "ctx": self.client_ctx()}
         plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
                 "iter0": self.iter_num}
+        if self._pre_augment_chunk:
+            plan["views"] = rt.pre_augment_views(
+                rt.gather_round_images(self.fd.images, self.fd.idx, pos), self.generator,
+                view_mode=self.algo.VIEW_MODE, augment_backend=cfg.data.augment_backend,
+                mean=cfg.data.mean, std=cfg.data.std, chunk=self._pre_augment_chunk)
         out = round_fn(self.global_vars, data, plan, scalars, self.generator,
                        extra_state)
         self.iter_num += pos.shape[0]

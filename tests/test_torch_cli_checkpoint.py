@@ -100,9 +100,9 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1"],
      "data.host_stream=True is not ported"),
-    (["--exp", "FedAVG+FixMatch", "--hoist_augment", "1"],
-     "hoist_augment=1 is not ported"),
-    (["--exp", "CBAFed", "--pre_augment", "64"], "pre_augment=64 is not ported"),
+    (["--exp", "FedAVG+FixMatch", "--client_unroll", "1"],
+     "client_unroll=1 is not ported"),
+    (["--exp", "CBAFed", "--small_pack", "64"], "small_pack=64 is not ported"),
 ])
 def test_cli_exits_with_a_message_for_what_is_not_ported(tmp_path, extra, message):
     argv = _SMALL + ["--output_dir", str(tmp_path)] + extra
@@ -132,8 +132,8 @@ def _cfg(**kw):
     ("weight_stream", dict(weight_stream=1)),
     ("data.host_stream", dict(data=DataConfig(name="synthetic", host_stream=True))),
     ("remat", dict(remat=1)),
-    ("pre_augment", dict(pre_augment=64)),
-    ("view_concat", dict(view_concat="on")),
+    ("scan_unroll", dict(scan_unroll=2)),
+    ("small_pack", dict(small_pack=64)),
     ("param_dtype", dict(param_dtype="bfloat16")),
     ("view_precat", dict(view_precat="on")),
     ("model", dict(model="resnet9")),

@@ -66,6 +66,26 @@ def test_fused_warp_kernel_matches_plain_version(card, B, S, degrees):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [2560, 3600])
+def test_fused_warp_kernel_over_a_whole_round_of_images(card, N):
+    """One launch over every view image of a hoisted round (N = S·K·B =
+    2560 at the flagship's stage 2), equal bit for bit to the same images
+    in launches of 32: the kernel works image by image. At N = 3600 the
+    output passes 2^31 bytes, so every byte offset must be 64-bit."""
+    imgs, params, flip = _batch(card, N, 224, seed=N)
+    W.reset_launch_counts()
+    got = W.fused_warp_normalize(imgs, params, flip, MEAN, STD)
+    torch.cuda.synchronize()
+    assert W.LAUNCH_COUNTS["fused_warp_normalize"] == 1
+    assert got.shape == (N, 3, 224, 224) and got.numel() * 4 > (2**31 if N > 3567 else 0)
+    for c in range(0, N, 32):
+        part = W.fused_warp_normalize(imgs[c:c + 32], params[c:c + 32], flip[c:c + 32],
+                                      MEAN, STD)
+        assert torch.equal(part, got[c:c + 32]), c
+    assert W.LAUNCH_COUNTS["fused_warp_normalize"] == 1 + -(-N // 32)
+
+
+@pytest.mark.cuda
 def test_fused_warp_kernel_rejects_strided_input(card):
     """A CUDA batch gets the kernel or an exception, never the plain version."""
     imgs, params, flip = _batch(card, 2, 32, seed=0)
@@ -146,6 +166,20 @@ def test_dw_kernels_at_the_b0_layers(card, C, H, k, stride):
     pads = (same_pads(H, k, stride), same_pads(H, k, stride))
     x, dy, w = _dw_operands(card, 2, C, H, k, stride, pads, torch.bfloat16, seed=C + H)
     _check_dw_kernels(x, dy, w, k, stride, pads, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H,k,stride", _B0_LAYERS)
+def test_dw_kernels_at_the_b0_layers_at_2b(card, C, H, k, stride, dtype):
+    """Both kernels at each EfficientNet-B0 layer's shape at B=64, the batch
+    of FedMLP's one-forward stage 1 (``view_concat='on'``), in bf16 and
+    float32: the launch plans that pick their splits and items from B."""
+    from fedmlp_tpu_torch.models.layers import same_pads
+
+    pads = (same_pads(H, k, stride), same_pads(H, k, stride))
+    x, dy, w = _dw_operands(card, 64, C, H, k, stride, pads, dtype, seed=C * H)
+    _check_dw_kernels(x, dy, w, k, stride, pads, dtype)
 
 
 @pytest.mark.cuda
@@ -273,6 +307,27 @@ def test_hshift_kernel_matches_plain_version(card, B, C, H, Wd, axis):
     line = (lambda t, i: t[0, :, i, :]) if axis == 3 else (lambda t, i: t[0, :, :, i])
     assert torch.equal(line(got, 0)[..., :length - 3], line(x, 0)[..., 3:])
     assert not line(got, 1).any() and not line(got, 2).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [3, 2])
+def test_hshift_kernel_at_a_pre_augment_chunk(card, axis):
+    """One pass over a 256-image chunk at 224 px (``pre_augment=256``: the
+    strong view's passes), shifts up to the RandAugment pool's 60 px and an
+    integer row, against the plain version: atol 1e-4 on the 0..255 scale."""
+    g = torch.Generator(device=card).manual_seed(256 + axis)
+    x = torch.rand((256, 3, 224, 224), generator=g, device=card) * 255.0
+    shifts = (torch.rand((256, 224), generator=g, device=card) * 2.0 - 1.0) * 60.0
+    shifts[0] = 7.0
+    W.reset_launch_counts()
+    got = W.hshift_rows(x, shifts, axis=axis)
+    want = W.hshift_rows_ref(x, shifts, axis=axis)
+    torch.cuda.synchronize()
+    assert W.LAUNCH_COUNTS["hshift_rows"] == 1
+    assert float((got - want).abs().max()) <= 1e-4
+    moved = got[0] if axis == 3 else got[0].transpose(1, 2)
+    src = x[0] if axis == 3 else x[0].transpose(1, 2)
+    assert torch.equal(moved[..., :-7], src[..., 7:])
 
 
 @pytest.mark.cuda
