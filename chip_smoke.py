@@ -13,7 +13,8 @@ first failure:
    shapes the main path gives it (the warp, the shear pass and the
    normalize/flip/cutout pass at B=32, 224 px, the warp also at 40° draws
    with two images translated past the plane, and over a hoisted round's
-   2560 images in one launch, equal bit for bit to launches of 32; the shear
+   2560 images and a lockstep or stacked step's 640 in one launch, equal bit
+   for bit to launches of 32; the shear
    pass also at a 256-image pre-augment chunk; the normalize/flip/cutout
    pass held to equal bits, also at the evaluation's chunk and at a shape
    that runs one pixel a thread; the two depthwise kernels at the 16
@@ -85,7 +86,18 @@ first failure:
    from one generator state (the weak view equal bit for bit), and
    RandAugmentPC and ``augment_pair`` on the card against the CPU on the
    same draws (B=32, 224 px).
-14. profile, profile_strong, profile_convbn, time_b5b6, time_views (only
+14. slice_lockstep: the flagship with ``batched_global='on'`` (the lockstep
+   engine: every step makes each view once for all 640 images and runs the
+   frozen global model once a view at batch 640), two stage-1 rounds and
+   one stage-2 round beside ``slice``'s; then one stage-1 round at K=4 in
+   float32 on 'normonly' views against the per-client loop, client losses
+   within 1e-4 relative.
+15. slice_stacked: the flagship with ``client_stacking='on'`` (one stacked
+   forward and backward a step for all clients; K cut to 10 or 5 only if
+   20 do not fit in the card's memory), 2 + 1 rounds with their peak
+   memory; then a float32 stacked forward of B0 at 224 px over 2 clients
+   against their own forwards, within 1e-3 of the largest logit.
+16. profile, profile_strong, profile_convbn, time_b5b6, time_views (only
    when asked for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
@@ -247,7 +259,8 @@ def phase_kernel_warp(dev) -> dict:
           f"library_ms=null (no single PyTorch call computes this warp); "
           f"floor_ms={floor_ms:.4f} (a one-cycle kernel) fill_ms={fill_ms:.4f} "
           f"(zero_ of the f32 output)")
-    err = max(err, warp_at_round(dev, flush))
+    for n in (N, K * B):
+        err = max(err, warp_in_one_launch(dev, flush, n))
     return {
         "name": "fused_warp_normalize",
         "route": "cuda",
@@ -263,44 +276,47 @@ def phase_kernel_warp(dev) -> dict:
     }
 
 
-def warp_at_round(dev, flush) -> float:
-    """The warp over a hoisted round's N = S·K·B = 2560 images in one launch
-    (the flagship's stage 2 with ``hoist_augment=1``): equal bit for bit to
-    the same images in launches of 32 and within 1e-4 of the plain version,
-    its time from a flushed L2 beside its bound (1926.8 MB at 3.35 TB/s), the
-    plain version's and a ``zero_`` of the output. Returns the error."""
+def warp_in_one_launch(dev, flush, n: int) -> float:
+    """The warp over ``n`` images in one launch: N = S·K·B = 2560, a hoisted
+    round (the flagship's stage 2 with ``hoist_augment=1``), and K·B = 640,
+    one view of a step of the lockstep and stacked engines. Equal bit for bit
+    to the same images in launches of 32 and within 1e-4 of the plain
+    version; its time from a flushed L2 beside its bound (1926.8 MB at
+    N=2560, 481.7 MB at 640, at 3.35 TB/s), the plain version's and a
+    ``zero_`` of the output. Returns the error."""
     from fedmlp_tpu_torch.ops import warp
 
     g = torch.Generator(device=dev)
-    g.manual_seed(2560)
-    imgs = torch.randint(0, 256, (N, SIZE, SIZE, 3), generator=g, device=dev,
+    g.manual_seed(n)
+    imgs = torch.randint(0, 256, (n, SIZE, SIZE, 3), generator=g, device=dev,
                          dtype=torch.uint8)
-    ang, tx, ty, flip = warp.weak_params(N, SIZE, SIZE, g, dev)
+    ang, tx, ty, flip = warp.weak_params(n, SIZE, SIZE, g, dev)
     params = warp.paeth_shift_params(torch.deg2rad(torch.where(flip, -ang, ang)),
                                      torch.where(flip, -tx, tx), ty, SIZE,
                                      SIZE).contiguous()
     got = warp.fused_warp_normalize(imgs, params, flip, MEAN, STD)
     n_diff = sum(int((warp.fused_warp_normalize(imgs[c:c + B], params[c:c + B],
                                                 flip[c:c + B], MEAN, STD)
-                      != got[c:c + B]).sum()) for c in range(0, N, B))
-    print(f"phase kernel: fused_warp_normalize N={N} in one launch: {n_diff} values "
-          f"differ from {N // B} launches of {B} (tol 0)")
+                      != got[c:c + B]).sum()) for c in range(0, n, B))
+    print(f"phase kernel: fused_warp_normalize N={n} in one launch: {n_diff} values "
+          f"differ from {n // B} launches of {B} (tol 0)")
     if n_diff:
-        raise SystemExit(f"fused_warp_normalize at N={N} differs from launches of {B}")
+        raise SystemExit(f"fused_warp_normalize at N={n} differs from launches of {B}")
     ms = cuda_ms(lambda: warp.fused_warp_normalize(imgs, params, flip, MEAN, STD), 10, 2,
                  flush)
     err = float((got - warp.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD))
                 .abs().max())
-    print(f"phase kernel: fused_warp_normalize N={N} max_abs_err={err:.3e} against the "
+    print(f"phase kernel: fused_warp_normalize N={n} max_abs_err={err:.3e} against the "
           f"plain version (tol 1e-4)")
     if not err <= 1e-4:
-        raise SystemExit(f"fused_warp_normalize disagrees with its plain version at N={N}")
+        raise SystemExit(f"fused_warp_normalize disagrees with its plain version at N={n}")
     plain_ms = cuda_ms(lambda: warp.fused_warp_normalize_ref(imgs, params, flip, MEAN, STD),
                        3, 1, flush)
     fill_ms = cuda_ms(lambda: got.zero_(), 10, 2, flush)
-    n_bytes = N * (SIZE * SIZE * 3 + 3 * SIZE * SIZE * 4 + 9 * 4 + 1)
-    bound_ms, bound_by = _bound(n_bytes, N * 3 * SIZE * SIZE * (7 * 4 + 2))
-    print(f"phase kernel: fused_warp_normalize N={N} (a hoisted round) flushed L2 "
+    n_bytes = n * (SIZE * SIZE * 3 + 3 * SIZE * SIZE * 4 + 9 * 4 + 1)
+    bound_ms, bound_by = _bound(n_bytes, n * 3 * SIZE * SIZE * (7 * 4 + 2))
+    what = "a hoisted round" if n == N else "a lockstep or stacked step's view"
+    print(f"phase kernel: fused_warp_normalize N={n} ({what}) flushed L2 "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, "
           f"{n_bytes / 1e6:.1f} MB) share={bound_ms / ms:.3f} fill_ms={fill_ms:.4f} "
           f"(zero_ of the f32 output)")
@@ -1096,6 +1112,7 @@ def dw_at_2b(dev, calls, g, flush) -> dict:
 
 def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
                     dw_backend: str = "", model: str = "efficient_b0", mixup: int = 0,
+                    compute_dtype: str = "bfloat16", augment_backend: str = "auto",
                     **kw):
     """bench.py::_bench_fedmlp's flagship FedMLP run (``kw``: engine knobs)."""
     from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
@@ -1105,24 +1122,30 @@ def flagship_config(n_clients: int, n_train: int, rounds_stage1: int = 2,
         n_clients=n_clients, local_ep=1, rounds_warmup=4, eval_every=10**6,
         seed=1037, p_pos=0.0, fedmlp=FedMLPConfig(rounds_stage1=rounds_stage1, mixup=mixup),
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
-                        synthetic_train_size=n_train, synthetic_test_size=N_TEST),
-        compute_dtype="bfloat16", dw_backend=dw_backend, output_dir="", **kw,
+                        synthetic_train_size=n_train, synthetic_test_size=N_TEST,
+                        augment_backend=augment_backend),
+        compute_dtype=compute_dtype, dw_backend=dw_backend, output_dir="", **kw,
     )
+
+
+def plan_steps(tr) -> int:
+    """S, the steps of ``tr``'s batch plans (the largest client's)."""
+    return tr.cfg.local_ep * int(math.ceil(int(tr.fd.valid.sum(1).max()) / B))
 
 
 def views_positions(tr) -> int:
     """S·K·B of ``tr``'s rounds: every plan position, padding included."""
-    S = tr.cfg.local_ep * int(math.ceil(int(tr.fd.valid.sum(1).max()) / B))
-    return S * tr.n_clients * B
+    return plan_steps(tr) * tr.n_clients * B
 
 
 def hoisted(tr, n_views: int) -> bool:
     """Whether ``tr``'s rounds of ``n_views`` views a step make them all
     before the first step (``hoist_augment``, at most
-    ``HOIST_MAX_VIEWS`` view images a round)."""
+    ``HOIST_MAX_VIEWS`` view images a round; the lockstep engine never)."""
     from fedmlp_tpu_torch.parallel.fl_runtime import HOIST_MAX_VIEWS
 
-    return bool(tr.cfg.hoist_augment) and views_positions(tr) * n_views <= HOIST_MAX_VIEWS
+    return (bool(tr.cfg.hoist_augment) and tr.engine != "lockstep"
+            and views_positions(tr) * n_views <= HOIST_MAX_VIEWS)
 
 
 # seconds of each round of each path run so far, by path
@@ -1172,30 +1195,36 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
     imgs_per_round = int(tr.fd.valid.sum().item()) * cfg.local_ep
 
     # expected launches. Warp: two weak views per real stage-1 step, one per
-    # stage-2 step (a hoisted round: one launch a view for the whole round),
-    # one per harvest chunk and client (one sweep in the last stage-1 round,
-    # two in a stage-2 round). Depthwise kernels (dw_backend='pallas'): one
-    # launch of each per depthwise layer (16) and train-mode forward that
-    # gets a backward: two per real stage-1 step (one with view_concat='on'),
-    # one per stage-2 step; padding steps and eval-mode forwards add none.
+    # stage-2 step (a hoisted round: one launch a view for the whole round;
+    # the lockstep and stacked engines: one launch a view a plan step, for
+    # all K·B images), one per harvest chunk and client (one sweep in the
+    # last stage-1 round, two in a stage-2 round). Depthwise kernels
+    # (dw_backend='pallas', not on the stacked forward): one launch of each
+    # per depthwise layer (16) and train-mode forward that gets a backward:
+    # two per real stage-1 step (one with view_concat='on'), one per stage-2
+    # step; padding steps and eval-mode forwards add none.
     valid = tr.fd.valid.cpu().numpy()
     steps = sum(int(math.ceil(n / B)) for n in valid.sum(1)) * cfg.local_ep
     chunks = n_clients * int(math.ceil(valid.shape[1] / (4 * B)))
     n_stage2 = n_rounds - stage1_rounds
+    stage2_engine = "mapped" if cfg.fedmlp.mixup else tr.engine
 
-    def view_launches(n_views: int) -> int:
-        return n_views if hoisted(tr, n_views) else n_views * steps
+    def view_launches(n_views: int, engine: str) -> int:
+        if hoisted(tr, n_views):
+            return n_views
+        return n_views * (steps if engine == "mapped" else plan_steps(tr))
 
     stage1_forwards = 1 if cfg.view_concat == "on" else 2
     train_forwards = stage1_forwards * steps * stage1_rounds + steps * n_stage2
-    dw = 16 * train_forwards if cfg.dw_backend == "pallas" else 0
+    dw = 16 * train_forwards if cfg.dw_backend == "pallas" and tr.engine != "stacked" else 0
     expected = {
-        "fused_warp_normalize": (stage1_rounds * view_launches(2)
-                                 + n_stage2 * view_launches(1)
+        "fused_warp_normalize": (stage1_rounds * view_launches(2, tr.engine)
+                                 + n_stage2 * view_launches(1, stage2_engine)
                                  + chunks + 2 * chunks * n_stage2),
         "dw_dgrad": dw, "dw_wgrad": dw,
     }
-    print(f"phase {path}: view_concat={cfg.view_concat} hoist_augment={cfg.hoist_augment}: "
+    print(f"phase {path}: engine {tr.engine} (stage 2 {stage2_engine}), "
+          f"view_concat={cfg.view_concat} hoist_augment={cfg.hoist_augment}: "
           f"stage 1 hoisted {hoisted(tr, 2)}, stage 2 hoisted {hoisted(tr, 1)}; "
           f"{stage1_forwards} train forward(s) a stage-1 step")
     if count_eval:  # the test transform, one launch a chunk of 4B images
@@ -1247,6 +1276,111 @@ def phase_slice(dev, card: str) -> dict:
     """Two stage-1 rounds (the second harvests) and one stage-2 round at the
     flagship geometry, default depthwise backend."""
     return run_flagship("slice", dev, card, flagship_config(K, N), 2, 3)
+
+
+def print_beside_slice(path: str, card: str, n_images: int = N) -> None:
+    """Each round of ``path`` (``n_images`` a round) beside ``slice``'s round
+    of the same index from this run: seconds and images/s."""
+    base = ROUND_SECONDS.get("slice")
+    for rnd, t in enumerate(ROUND_SECONDS[path]):
+        other = (f"slice round {rnd} {base[rnd]:.3f} s ({N / base[rnd]:.1f} img/s)"
+                 if base and rnd < len(base) else "nothing")
+        print(f"phase {path}: round {rnd} {t:.3f} s ({n_images / t:.1f} img/s) beside "
+              f"{other} [{card}]")
+
+
+# the lockstep gate: client losses of one round against the per-client
+# loop's, relative (float32, TF32 off; the frozen-global forward runs at
+# K·B = 128 images against 32, which may pick another cuDNN algorithm)
+LOCKSTEP_REL_TOL = 1e-4
+
+
+def phase_slice_lockstep(dev, card: str) -> dict:
+    """The flagship with ``batched_global='on'``: two stage-1 rounds (one
+    warp launch a view a plan step for all 640 images, the frozen global
+    model once a view at batch 640) and one stage-2 round, each beside
+    ``slice``'s. Then the gate: at K=4 (512 images), float32, 'normonly'
+    views, one stage-1 round of the lockstep engine against the per-client
+    loop (B0 without dropout or drop-connect, whose masks the engines draw
+    in different orders), client losses within ``LOCKSTEP_REL_TOL``."""
+    from fedmlp_tpu_torch.train import Trainer
+
+    from fedmlp_tpu_torch.models import build_model
+
+    class NoDropTrainer(Trainer):
+        """B0 without dropout and drop-connect: the two engines draw their
+        masks from the generator in different orders."""
+
+        def _build_model(self):
+            return build_model(self.cfg.model, self.cfg.n_classes, dropout_p=0.0,
+                               drop_connect_rate=0.0)
+
+    launches = run_flagship("slice_lockstep", dev, card,
+                            flagship_config(K, N, batched_global="on"), 2, 3)
+    print_beside_slice("slice_lockstep", card)
+    losses = {}
+    for mode in ("off", "on"):
+        cfg = flagship_config(4, 4 * 128, compute_dtype="float32",
+                              augment_backend="normonly", batched_global=mode)
+        tr = NoDropTrainer(cfg, device=dev)
+        losses[mode] = np.asarray(tr.run_round(0).client_losses)
+        del tr
+    err = float(np.max(np.abs(losses["on"] - losses["off"]) / np.abs(losses["off"])))
+    print(f"phase slice_lockstep: gate K=4 float32 normonly, one stage-1 round: client "
+          f"losses lockstep {losses['on'].tolist()} loop {losses['off'].tolist()}, "
+          f"largest relative difference {err:.3e} (tol {LOCKSTEP_REL_TOL:g}) [{card}]")
+    if not err <= LOCKSTEP_REL_TOL:
+        raise SystemExit(f"slice_lockstep: lockstep losses off the loop's by {err}")
+    return launches
+
+
+def phase_slice_stacked(dev, card: str) -> dict:
+    """FedMLP with ``client_stacking='on'`` at the flagship geometry, two
+    stage-1 rounds and one stage-2 round (one stacked forward and backward a
+    step for all clients), each beside ``slice``'s with its peak memory.
+    Then the gate: a float32 stacked forward of B0 at 224 px, B=4, over K=2
+    clients of different weights, in eval and in train mode, within
+    ``ZOO_REL_TOL`` of the largest magnitude of the per-client forwards'
+    logits."""
+    from fedmlp_tpu_torch.models import build_model, init_model
+    from fedmlp_tpu_torch.models.stacked import stacked_apply
+
+    import gc
+
+    for n_clients in (K, 10, 5):  # K cut only if the card's memory forces it
+        try:
+            launches = run_flagship("slice_stacked", dev, card, flagship_config(
+                n_clients, n_clients * N // K, client_stacking="on"), 2, 3)
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"phase slice_stacked: K={n_clients} does not fit in the card's "
+                  f"memory [{card}]")
+            ROUND_SECONDS.pop("slice_stacked", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+    else:
+        raise SystemExit("slice_stacked: not even K=5 fits")
+    print(f"phase slice_stacked: K={n_clients} clients of {N // K} images")
+    print_beside_slice("slice_stacked", card, n_clients * N // K)
+    models = [init_model(build_model("efficient_b0", N_CLASSES), seed).to(dev)
+              for seed in (0, 1)]
+    sv = {n: torch.stack([m.state_dict()[n] for m in models])
+          for n in models[0].state_dict()}
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    x = torch.randn((2, 4, 3, SIZE, SIZE), generator=g, device=dev)
+    for train in (False, True):
+        with torch.no_grad():
+            (_, logits), _ = stacked_apply(models[0], sv, x, train=train)
+            errs = [_rel_err(logits[k], m.train(train)(x[k])[1])
+                    for k, m in enumerate(models)]
+        print(f"phase slice_stacked: gate B0 {SIZE} px float32 K=2 B=4 "
+              f"{'train' if train else 'eval'}: logits relative error "
+              f"{max(errs):.3e} (tol {ZOO_REL_TOL:g}) [{card}]")
+        if not max(errs) <= ZOO_REL_TOL:
+            raise SystemExit(f"slice_stacked: stacked forward off the per-client "
+                             f"forwards by {max(errs)}")
+    return launches
 
 
 def phase_slice_dw(dev, card: str) -> dict:
@@ -2074,6 +2208,8 @@ _PATH_KERNELS = {
     "slice_centralized": ("fused_warp_normalize", "normalize_flip_cutout"),
     "slice_resnet18": ("fused_warp_normalize", "normalize_flip_cutout"),
     "models_zoo": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_lockstep": ("fused_warp_normalize",),
+    "slice_stacked": ("fused_warp_normalize",),
     "slice_views": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad"),
     "slice_preaug": ("fused_warp_normalize", "hshift_rows", "bce_with_logits_masked_sum",
                      "bce_with_logits_masked_grad", "normalize_flip_cutout"),
@@ -2160,14 +2296,16 @@ def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernel,slice,slice_dw,cli,slice_strong,"
+    ap.add_argument("--phases", default="build,kernel,slice,slice_lockstep,"
+                                        "slice_stacked,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
                                         "slice_resnet18,models_zoo,slice_views,"
                                         "slice_preaug",
-                    help="comma list of build,kernel,slice,slice_dw,cli,slice_strong,"
-                         "probe_convbn,slice_fednoro,slice_baselines,slice_resnet18,"
-                         "models_zoo,slice_views,slice_preaug,profile,profile_strong,"
-                         "profile_convbn,time_b5b6,time_views")
+                    help="comma list of build,kernel,slice,slice_lockstep,slice_stacked,"
+                         "slice_dw,cli,slice_strong,probe_convbn,slice_fednoro,"
+                         "slice_baselines,slice_resnet18,models_zoo,slice_views,"
+                         "slice_preaug,profile,profile_strong,profile_convbn,time_b5b6,"
+                         "time_views")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2190,6 +2328,10 @@ def main(argv=None) -> int:
     by_path = {}
     if "slice" in phases:
         by_path["slice"] = phase_slice(dev, card)
+    if "slice_lockstep" in phases:
+        by_path["slice_lockstep"] = phase_slice_lockstep(dev, card)
+    if "slice_stacked" in phases:
+        by_path["slice_stacked"] = phase_slice_stacked(dev, card)
     if "slice_dw" in phases:
         by_path["slice_dw"] = phase_slice_dw(dev, card)
     if "cli" in phases:

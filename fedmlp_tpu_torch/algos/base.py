@@ -15,5 +15,6 @@ def apply_train(model, x, generator=None):
 
 
 def masked_rows(loss_elem: torch.Tensor, svalid: torch.Tensor) -> torch.Tensor:
-    """Zero out padding samples of a ragged batch; loss_elem [B, C]."""
-    return loss_elem * svalid.to(loss_elem.dtype)[:, None]
+    """Zero out padding samples of a ragged batch; loss_elem [B, C] with
+    svalid [B], or [K, B, C] with [K, B]."""
+    return loss_elem * svalid.to(loss_elem.dtype)[..., None]

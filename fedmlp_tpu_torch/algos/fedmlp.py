@@ -23,6 +23,7 @@ import torch
 
 from fedmlp_tpu_torch.algos.base import apply_train, masked_rows
 from fedmlp_tpu_torch.fl import fedavg_proto, fedavg_tao
+from fedmlp_tpu_torch.models.stacked import stacked_apply
 from fedmlp_tpu_torch.ops import losses as L
 from fedmlp_tpu_torch.ops.mixup import draw_mixup, mixup_images
 from fedmlp_tpu_torch.ops.similarity import (
@@ -51,27 +52,50 @@ def loss_fn_viewcat(model, views, sample, svalid, ctx, generator, scalars):
     """Stage-1 loss with the two weak views run as ONE 2B forward
     (``view_concat='on'``): the same loss as ``loss_fn``, but the batch-norm
     statistics are taken over the joint 2B batch and the running statistics
-    update once a step instead of twice."""
-    _, logits = apply_train(model, torch.cat([views["x1"], views["x2"]]), generator)
+    update once a step instead of twice. 'x12', where the lockstep engine
+    brings it (``view_precat``), is that concatenation made once a step."""
+    x = views.get("x12")
+    if x is None:
+        x = torch.cat([views["x1"], views["x2"]])
+    _, logits = apply_train(model, x, generator)
     logits1, logits2 = logits.chunk(2)
     return _stage1_loss(logits1, logits2, views, sample, svalid, ctx)
 
 
 def _stage1_loss(logits1, logits2, views, sample, svalid, ctx):
+    """The stage-1 loss of one client ([B, C] logits), or of K clients at
+    once ([K, B, C] logits, [K, B] ``svalid``, [K, C] ctx): then the
+    per-client losses [K]."""
     labels = sample["labels"]
     p1 = torch.sigmoid(logits1.float())
     p2 = torch.sigmoid(logits2.float())
-    B = logits1.shape[0]
+    B = logits1.shape[-2]
     g1 = torch.sigmoid(views["g_logits1"].float())
     g2 = torch.sigmoid(views["g_logits2"].float())
     sup = (L.bce_on_probs(p1, labels) + L.bce_on_probs(p2, labels)) / 2.0
     dis = ((p1 - g1) ** 2 + (p2 - g2) ** 2) / 2.0
     sup = masked_rows(sup, svalid)
     dis = masked_rows(dis, svalid)
-    active, negative = ctx["active"], ctx["negative"]
-    loss_sup = (sup * active[None, :]).sum() / (B * torch.clamp(active.sum(), min=1.0))
-    loss_dis = (dis * negative[None, :]).sum() / (B * torch.clamp(negative.sum(), min=1.0))
+    active = ctx["active"].unsqueeze(-2)
+    negative = ctx["negative"].unsqueeze(-2)
+    loss_sup = (sup * active).sum((-2, -1)) / (
+        B * torch.clamp(active.sum((-2, -1)), min=1.0))
+    loss_dis = (dis * negative).sum((-2, -1)) / (
+        B * torch.clamp(negative.sum((-2, -1)), min=1.0))
     return loss_sup + loss_dis
+
+
+def stacked_loss_fn(model, svars, views, sample, svalid, ctx, generator, scalars):
+    """Stage-1 loss of all K clients in one stacked forward a view
+    (``models/stacked.py``; the engine's ``make_stacked_local_round``): the
+    math of ``loss_fn`` with the [K] client axis kept, the second view's
+    forward on the running statistics the first one left. Returns (summed
+    loss, per-client losses [K], new running statistics)."""
+    (_, logits1), st1 = stacked_apply(model, svars, views["x1"], True, generator)
+    (_, logits2), st2 = stacked_apply(model, {**svars, **st1}, views["x2"], True,
+                                      generator)
+    loss_k = _stage1_loss(logits1, logits2, views, sample, svalid, ctx)
+    return loss_k.sum(), loss_k, st2
 
 
 # ----------------------------------------------------------------------
@@ -98,6 +122,27 @@ def stage2_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
         denom = torch.clamp(cell.sum() + dcell.sum(), min=1.0)
         loss = (sup.sum() + dis.sum()) / denom
     return loss
+
+
+def stage2_stacked_loss_fn(model, svars, views, sample, svalid, ctx, generator,
+                           scalars):
+    """``stage2_loss_fn`` for all K clients in one stacked forward; returns
+    (summed loss, per-client losses [K], new running statistics)."""
+    labels = sample["labels"]  # [K, B, C]
+    supmask = sample["supmask"]
+    (_, logits1), st = stacked_apply(model, svars, views["x"] if "x" in views
+                                     else views["x1"], True, generator)
+    p1 = torch.sigmoid(logits1.float())
+    sv = svalid.to(supmask.dtype)[..., None]
+    cell = supmask * sv
+    sup = (L.bce_on_probs(p1, labels) * cell).sum((1, 2))
+    loss_k = sup / torch.clamp(cell.sum((1, 2)), min=1.0)
+    glog = views.get("g_logits")
+    if glog is not None:
+        dcell = (1.0 - supmask) * sv
+        dis = (((p1 - torch.sigmoid(glog.float())) ** 2) * dcell).sum((1, 2))
+        loss_k = (sup + dis) / torch.clamp(cell.sum((1, 2)) + dcell.sum((1, 2)), min=1.0)
+    return loss_k.sum(), loss_k, st
 
 
 def stage2_mixup_loss_fn(model, views, sample, svalid, ctx, generator, scalars):
@@ -235,22 +280,23 @@ def _get_harvest(trainer):
 
 
 def _get_stage2_fn(trainer):
+    """Stage 2's round, on view 1 only (reference :1176-1188), on the
+    trainer's engine; with ``fedmlp.mixup`` on the per-client loop, as the
+    JAX package does."""
     if not hasattr(trainer, "_fedmlp_stage2_fn"):
-        trainer._fedmlp_stage2_fn = rt.make_local_round(
-            trainer.model,
-            stage2_mixup_loss_fn if trainer.cfg.fedmlp.mixup else stage2_loss_fn,
-            lr=trainer.cfg.base_lr,
-            batch_size=trainer.cfg.batch_size,
-            mean=trainer.cfg.data.mean,
-            std=trainer.cfg.data.std,
-            # stage 2 trains on view 1 only (reference :1176-1188)
-            view_mode="single",
-            needs_global=trainer.cfg.fedmlp.stage2_distill,
-            augment_backend=trainer.cfg.data.augment_backend,
-            compute_dtype=trainer.cfg.compute_dtype,
-            global_model=trainer.global_model,
-            hoist_augment=bool(trainer.cfg.hoist_augment),
-        )
+        cfg = trainer.cfg
+        if cfg.fedmlp.mixup:
+            trainer._fedmlp_stage2_fn = rt.make_local_round(
+                trainer.model, stage2_mixup_loss_fn, lr=cfg.base_lr,
+                batch_size=cfg.batch_size, mean=cfg.data.mean, std=cfg.data.std,
+                view_mode="single", needs_global=cfg.fedmlp.stage2_distill,
+                augment_backend=cfg.data.augment_backend,
+                compute_dtype=cfg.compute_dtype, global_model=trainer.global_model,
+                hoist_augment=bool(cfg.hoist_augment))
+        else:
+            trainer._fedmlp_stage2_fn = trainer.make_round(
+                stage2_loss_fn, stage2_stacked_loss_fn, view_mode="single",
+                needs_global=cfg.fedmlp.stage2_distill)
     return trainer._fedmlp_stage2_fn
 
 

@@ -144,12 +144,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_unroll", type=int, default=1)
     p.add_argument("--view_concat", type=str, default="auto",
                    choices=["auto", "off", "on"],
-                   help="dual-view losses as one 2B forward (not ported: "
-                        "auto = off)")
+                   help="dual-view losses as one 2B forward (auto = off)")
     p.add_argument("--view_precat", type=str, default="auto",
                    choices=["auto", "off", "on"],
-                   help="hoist the 2B concat out of the per-client map "
-                        "(not ported: auto = off)")
+                   help="lockstep engine with --view_concat on: concatenate "
+                        "the two views once a step (auto = off)")
     p.add_argument("--remat", type=int, default=0,
                    help="rematerialize backbone blocks in the backward "
                         "pass (not ported)")
@@ -157,9 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="selective remat: comma list of EfficientNet "
                         "stage indices (not ported)")
     p.add_argument("--client_unroll", type=int, default=0,
-                   help="lockstep engine knob (not ported)")
+                   help="shapes the JAX package's XLA program; the identity here")
     p.add_argument("--small_pack", type=int, default=0,
-                   help="lockstep engine knob (not ported)")
+                   help="shapes the JAX package's XLA program; the identity here")
     p.add_argument("--dw_backend", type=str, default="",
                    choices=["", "conv", "taps", "pallas", "dense"],
                    help="EfficientNet depthwise-conv implementation (models/"
@@ -168,16 +167,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "backward kernels; 'taps' and 'dense' are not ported")
     p.add_argument("--client_stacking", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="channel-stacked lockstep clients (not ported: "
-                        "auto = off)")
+                   help="channel-stacked lockstep clients (auto = off)")
     p.add_argument("--hoist_augment", type=int, default=0)
     p.add_argument("--pre_augment", type=int, default=-1,
-                   help="compute round views outside the round (not "
-                        "ported: -1 auto and 0 are off)")
+                   help="make each round's views before it, N images at a "
+                        "time (-1 auto and 0 are off)")
     p.add_argument("--weight_stream", type=int, default=0)
     p.add_argument("--batched_global", type=str, default="auto",
                    choices=["auto", "on", "off"],
-                   help="lockstep loop order (not ported: auto = off)")
+                   help="lockstep loop order (auto = off)")
     p.add_argument("--synthetic_train_size", type=int, default=512)
     p.add_argument("--synthetic_test_size", type=int, default=128)
     # the one flag the port adds: its entry points name their device

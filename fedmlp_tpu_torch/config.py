@@ -2,11 +2,12 @@
 
 The same frozen dataclasses with the same fields and defaults, so one set of
 settings drives either package. Fields that select engines of the JAX
-package which the port does not have yet (mesh, lockstep, stacked clients,
-view concatenation, host streaming, remat, weight streaming, pre-augment)
-are kept for that parity: ``train.py::check_ported`` accepts their 'auto',
-empty and off values and raises on any other, naming the field, so no knob
-is accepted and ignored; ``ROADMAP.md`` lists them.
+package which the port does not have yet (mesh, host streaming, remat,
+weight streaming) are kept for that parity: ``train.py::check_ported``
+accepts their 'auto', empty and off values and raises on any other, naming
+the field, so no knob is accepted and ignored; ``ROADMAP.md`` lists them.
+``scan_unroll``, ``client_unroll`` and ``small_pack`` only shape the JAX
+package's XLA program and are the identity here.
 """
 
 from __future__ import annotations
@@ -150,9 +151,10 @@ class Config:
     # torch.autocast on the card
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
-    # JAX-package engine knobs, kept for field parity; check_ported raises
-    # on a value the port has no engine for. dw_backend: '' or 'conv' (the
-    # grouped conv) and 'pallas' (ops/depthwise.py::DepthwisePallas)
+    # engine knobs, the JAX package's fields; check_ported raises on a value
+    # the port has no engine for. client_stacking / batched_global 'on':
+    # the stacked / lockstep engine ('auto' = off). dw_backend: '' or 'conv'
+    # (the grouped conv) and 'pallas' (ops/depthwise.py::DepthwisePallas)
     scan_unroll: int = 1
     view_concat: str = "auto"
     view_precat: str = "auto"

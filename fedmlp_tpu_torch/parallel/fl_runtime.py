@@ -2,9 +2,12 @@
 local round, the feature harvest and the evaluation forward.
 
 The JAX package compiles a round into one program over client-stacked
-state; here a round is a Python loop over clients, each trained in turn on
-one working module (the JAX package's mapped engine, ``make_local_round``,
-with ``lax.map`` over clients and ``lax.scan`` over steps written out).
+state; here a round is a Python loop, on one of three engines:
+``make_local_round`` trains the clients in turn on one working module (the
+JAX package's mapped engine, ``lax.map`` over clients and ``lax.scan`` over
+steps written out); ``make_lockstep_local_round`` runs the steps outside and
+the clients inside; ``make_stacked_local_round`` runs all clients as one
+channel-stacked network (``models/stacked.py``).
 
 Parity notes (as in the JAX package):
   * Adam is created afresh for every client every round (the reference
@@ -25,6 +28,7 @@ import math
 
 import numpy as np
 import torch
+from torch.optim.adam import adam as _adam
 
 from fedmlp_tpu_torch.data.masking import (
     build_active_matrix,
@@ -34,12 +38,27 @@ from fedmlp_tpu_torch.data.masking import (
 from fedmlp_tpu_torch.ops import augment as A
 
 
+_BETAS, _ADAM_EPS, _WEIGHT_DECAY = (0.9, 0.999), 1e-8, 5e-4
+
+
 def torch_adam(params, lr: float) -> torch.optim.Adam:
     """The reference optimizer (utils/local_training.py:636-637), which the
     JAX package's ``torch_adam`` optax chain mirrors: Adam with L2 weight
     decay 5e-4 added to the gradient."""
-    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=5e-4)
+    return torch.optim.Adam(params, lr=lr, betas=_BETAS, eps=_ADAM_EPS,
+                            weight_decay=_WEIGHT_DECAY)
+
+
+def adam_update(params, grads, exp_avgs, exp_avg_sqs, steps, lr: float) -> None:
+    """``torch_adam``'s update of the tensors ``params`` in place, each with
+    its own moments and 0-dim step count (so clients that step at different
+    times keep their own bias correction): the function that
+    ``torch.optim.Adam.step`` calls, with the same choice of foreach
+    kernels, so the same gradients give the same bits."""
+    with torch.no_grad():
+        _adam(params, grads, exp_avgs, exp_avg_sqs, [], steps,
+              amsgrad=False, beta1=_BETAS[0], beta2=_BETAS[1], lr=lr,
+              weight_decay=_WEIGHT_DECAY, eps=_ADAM_EPS, maximize=False)
 
 
 def autocast(device: torch.device, compute_dtype: str):
@@ -190,6 +209,64 @@ def pre_augment_views(imgs: torch.Tensor, generator: torch.Generator, *, view_mo
 HOIST_MAX_VIEWS = 4096
 
 
+def _step_setup(data, plan, compute_dtype, needs_global, global_model, global_vars):
+    """What every engine's round starts with: (device, the plan's positions
+    and valid mask on it, client row indices [K, 1], the autocast context),
+    and the frozen global model loaded and in eval mode when needed."""
+    device = data["images"].device
+    pos_d = torch.as_tensor(plan["pos"], dtype=torch.int64, device=device)
+    if needs_global:
+        global_model.load_state_dict(global_vars)
+        global_model.eval()
+    return (device, pos_d, torch.as_tensor(plan["pos_valid"], device=device),
+            torch.arange(pos_d.shape[1], device=device)[:, None],
+            autocast(device, compute_dtype))
+
+
+def _round_views(plan, hoist_augment: bool, n_views: int, data, pos_d, generator,
+                 **kw):
+    """The views a round brings (``plan['views']``) or, with
+    ``hoist_augment`` and at most ``HOIST_MAX_VIEWS`` view images, all of
+    them made now in one ``pre_augment_views`` call; else None (the steps
+    make their own)."""
+    made = plan.get("views")
+    S, K, B = pos_d.shape
+    if made is None and hoist_augment and S * K * B * n_views <= HOIST_MAX_VIEWS:
+        made = pre_augment_views(gather_round_images(data["images"], data["idx"], pos_d),
+                                 generator, chunk=S * K * B, **kw)
+    return made
+
+
+def _view_maker(view_mode: str, augment_backend: str, mean, std):
+    """``augment_views(imgs_u8 [..., H, W, 3], generator)`` → {'x'} or
+    {'x1', 'x2'}, f32 [..., 3, H, W]: one call of the backend per view over
+    all the images (the first view's draws, then the second's)."""
+    if view_mode not in ("single", "dual", "weak_strong"):
+        raise ValueError(f"unknown view_mode {view_mode!r}")
+    weak = A.pick_weak_backend(augment_backend)
+    second = (A.pick_strong_backend(augment_backend) if view_mode == "weak_strong"
+              else weak)
+
+    def augment_views(imgs_u8, generator):
+        lead = imgs_u8.shape[:-3]
+        flat = imgs_u8.reshape((-1,) + imgs_u8.shape[-3:])
+        fns = ({"x": weak} if view_mode == "single" else {"x1": weak, "x2": second})
+        views = {n: fn(flat, generator, mean, std) for n, fn in fns.items()}
+        return {n: v.reshape(lead + v.shape[1:]) for n, v in views.items()}
+
+    return augment_views
+
+
+def _add_global_logits(global_model, views: dict) -> None:
+    """The frozen global model's logits on every view 'x*' of ``views``
+    (f32 [..., 3, H, W], one forward over all the leading positions), as
+    'g_logits*'."""
+    for v in [v for v in views if v.startswith("x")]:
+        x = views[v]
+        _, g = global_model(x.reshape((-1,) + x.shape[-3:]))
+        views["g_logits" + v[1:]] = g.reshape(x.shape[:-3] + g.shape[1:])
+
+
 def broadcast_to_clients(variables: dict, n_clients: int) -> dict:
     """Global variables as a client-stacked dict [K, ...] (expanded views,
     no copies): the reference's per-client deepcopy(netglob)."""
@@ -266,22 +343,12 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     ``global_model`` is a second module of the same architecture for the
     frozen-global forwards (built when ``needs_global``).
     """
-    if view_mode not in ("single", "dual", "weak_strong"):
-        raise ValueError(f"unknown view_mode {view_mode!r}")
     if teacher_scope not in ("all", "params"):
         raise ValueError(f"unknown teacher_scope {teacher_scope!r}")
     has_teacher = teacher_decay is not None
-    weak = A.pick_weak_backend(augment_backend)
-    second = (A.pick_strong_backend(augment_backend) if view_mode == "weak_strong"
-              else weak)
+    augment_views = _view_maker(view_mode, augment_backend, mean, std)
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
     n_views = 1 if view_mode == "single" else 2
-
-    def augment_views(imgs_u8, generator):
-        if view_mode == "single":
-            return {"x": weak(imgs_u8, generator, mean, std)}
-        return {"x1": weak(imgs_u8, generator, mean, std),
-                "x2": second(imgs_u8, generator, mean, std)}
 
     def ema_pairs():
         """(teacher tensors, model tensors) that the EMA averages."""
@@ -304,25 +371,17 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
         pos, pos_valid = plan["pos"], plan["pos_valid"]
         S, K, B = pos.shape
-        device = data["images"].device
         extra_state = extra_state or {}
         teacher, cstate = extra_state.get("teacher"), extra_state.get("cstate")
         if has_teacher != (teacher is not None):
             raise ValueError("a round with a teacher needs extra_state['teacher'], "
                              "and one without takes none")
         iter0 = int(plan.get("iter0", 0))
-        pos_d = torch.as_tensor(pos, dtype=torch.int64, device=device)
-        made = plan.get("views")
-        if made is None and hoist_augment and S * K * B * n_views <= HOIST_MAX_VIEWS:
-            made = pre_augment_views(
-                gather_round_images(data["images"], data["idx"], pos_d), generator,
-                view_mode=view_mode, augment_backend=augment_backend, mean=mean,
-                std=std, chunk=S * K * B)
-        valid_d = torch.as_tensor(pos_valid, device=device)
-        cast = autocast(device, compute_dtype)
-        if needs_global:
-            global_model.load_state_dict(global_vars)
-            global_model.eval()
+        device, pos_d, valid_d, _, cast = _step_setup(
+            data, plan, compute_dtype, needs_global, global_model, global_vars)
+        made = _round_views(plan, hoist_augment, n_views, data, pos_d, generator,
+                            view_mode=view_mode, augment_backend=augment_backend,
+                            mean=mean, std=std)
         stacked = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=device)
                    for n, v in global_vars.items()}
         out = {"vars": stacked}
@@ -361,9 +420,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                 with cast:
                     with torch.no_grad():
                         if needs_global:
-                            for v in [v for v in views if v.startswith("x")]:
-                                _, g = global_model(views[v])
-                                views["g_logits" + v[1:]] = g
+                            _add_global_logits(global_model, views)
                         if has_teacher:
                             _, views[t_key] = teacher_model(views[t_view])
                     res = loss_fn(model, views, sample, valid_d[s, k], ctx,
@@ -394,6 +451,213 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                 for n, v in kw["cstate"].items():
                     out["cstate"][n][k].copy_(v)
         return out, mean_losses, _stack_aux(aux_sums)
+
+    return round_fn
+
+
+# ----------------------------------------------------------------------
+# Lockstep round: steps outside, clients inside (the JAX package's
+# ``make_lockstep_local_round``). The training math is the per-client
+# loop's; the loop order lets a step's shared work run once for all K
+# clients: one view call a view over the K·B step images, one frozen-global
+# forward a view at batch K·B.
+# ----------------------------------------------------------------------
+
+class _LossCall(torch.nn.Module):
+    """``loss_fn(model, *args)`` as a module, so that
+    ``torch.func.functional_call`` runs it on one client's tensors."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *args):
+        return self.loss_fn(self.model, *args)
+
+
+def _precat(x1, x2):
+    """'x12' [K, 2B, ...]: every client's two views [K, B, ...] concatenated
+    in one call, each client's slice laid out as ``torch.cat`` lays out the
+    concatenation of its own two slices (a view backend may return
+    channels-last images), so its forward reads the same tensor."""
+    ref = torch.cat([x1[0], x2[0]])
+    out = torch.empty_strided((x1.shape[0],) + ref.shape, (ref.numel(),) + ref.stride(),
+                              dtype=ref.dtype, device=ref.device)
+    return torch.cat([x1, x2], 1, out=out)
+
+
+def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
+                              view_mode: str = "dual", needs_global: bool = True,
+                              augment_backend: str = "auto",
+                              compute_dtype: str = "float32", global_model=None,
+                              view_precat: bool = False):
+    """``make_local_round``'s round for algorithms without a teacher or
+    per-client state (FedMLP's two stages, FedNoRo), in the lockstep order:
+    each step makes every view once for all K·B images (the first view's
+    draws, then the second's), runs the frozen global model once a view at
+    batch K·B when ``needs_global``, then computes each client's gradient
+    with its own parameters and batch-norm buffers (``torch.func.
+    functional_call`` on ``model``; a train-mode batch norm updates the
+    client's buffers in place) and applies one Adam update over the clients
+    that took a real step (``adam_update``). A client whose step is all
+    padding holds its variables, Adam moments and count. ``view_precat``
+    concatenates 'x1' and 'x2' once a step into 'x12' [K, 2B, ...], which
+    ``fedmlp.loss_fn_viewcat`` reads.
+
+    Same ``round_fn`` signature and outputs as ``make_local_round`` (aux sums
+    are empty); views are always made in the step, and ``extra_state`` must
+    be None. Against the per-client loop only the generator's order differs
+    (all K·B draws of a step at once), and the frozen-global forward's batch."""
+    augment_views = _view_maker(view_mode, augment_backend, mean, std)
+    call = _LossCall(model, loss_fn)
+    pnames = [n for n, _ in model.named_parameters()]
+
+    def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
+        if extra_state or plan.get("views") is not None:
+            raise ValueError("the lockstep round makes its views in the step and "
+                             "carries no teacher or per-client state")
+        pos_valid = plan["pos_valid"]
+        S, K, _ = pos_valid.shape
+        device, pos_d, valid_d, rows, cast = _step_setup(
+            data, plan, compute_dtype, needs_global, global_model, global_vars)
+        # each client's own tensors, never views of global_vars
+        clients = [{"model." + n: v.detach().clone() for n, v in global_vars.items()}
+                   for _ in range(K)]
+        for c in clients:
+            for n in pnames:
+                c["model." + n].requires_grad_(True)
+        opt = [{} for _ in range(K)]  # name → (exp_avg, exp_avg_sq, step), as Adam's
+        loss_sum = [torch.zeros((), dtype=torch.float32, device=device) for _ in range(K)]
+        cnt = [0] * K
+        for s in range(S):
+            stepping = np.flatnonzero(pos_valid[s].any(1))
+            if not len(stepping):
+                continue
+            p = pos_d[s]
+            views = augment_views(data["images"][data["idx"][rows, p]], generator)
+            if needs_global:
+                with cast, torch.no_grad():
+                    _add_global_logits(global_model, views)
+            if view_precat and "x1" in views:
+                views["x12"] = _precat(views.pop("x1"), views.pop("x2"))
+            update = ([], [], [], [], [])
+            for k in stepping:
+                sample = {n: t[k, p[k]] for n, t in plan["sample"].items()}
+                sample["_pos"] = p[k]
+                args = ({n: v[k] for n, v in views.items()}, sample, valid_d[s, k],
+                        {n: v[k] for n, v in data["ctx"].items()}, generator, scalars)
+                with cast:
+                    loss = torch.func.functional_call(call, clients[k], args)
+                params = [clients[k]["model." + n] for n in pnames]
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                for n, prm, g in zip(pnames, params, grads):
+                    if g is None:  # as Adam skips a parameter without a gradient
+                        continue
+                    if n not in opt[k]:
+                        opt[k][n] = (torch.zeros_like(prm), torch.zeros_like(prm),
+                                     torch.tensor(0.0))
+                    for lst, t in zip(update, (prm, g) + opt[k][n]):
+                        lst.append(t)
+                loss_sum[k] += loss.detach().float()
+                cnt[k] += 1
+            adam_update(*update, lr)
+        out = {n: torch.stack([c["model." + n].detach() for c in clients])
+               for n in global_vars}
+        mean_losses = torch.stack([ls / max(c, 1) for ls, c in zip(loss_sum, cnt)])
+        return {"vars": out}, mean_losses, {}
+
+    return round_fn
+
+
+# ----------------------------------------------------------------------
+# Channel-stacked round: all K clients advance through each step as ONE
+# network of K×-wide grouped layers (``models/stacked.py``; the JAX
+# package's ``make_stacked_local_round``).
+# ----------------------------------------------------------------------
+
+def make_stacked_local_round(model, stacked_loss_fn, *, lr: float, batch_size: int,
+                             mean, std, view_mode: str = "single",
+                             needs_global: bool = False, augment_backend: str = "auto",
+                             compute_dtype: str = "float32", global_model=None,
+                             hoist_augment: bool = False):
+    """``make_local_round``'s round for algorithms with a
+    ``stacked_loss_fn(model, svars, views, sample, svalid, ctx, generator,
+    scalars) -> (summed loss, losses [K], new running statistics {name: [K,
+    C]})``, where every tensor keeps its [K, ...] client axis and ``svars`` is
+    the client-stacked state dict. Each step makes its views with one call a
+    view over all K·B images (or reads them from a hoisted round, as
+    ``make_local_round`` does), runs the frozen global model, when needed,
+    once a view at batch K·B, then one stacked forward and backward for all
+    K clients. Adam is ``adam_update`` over one slice of every leaf a client,
+    each with its own moments and count, for the clients that took a real
+    step; a client whose step is all padding holds its parameters,
+    batch-norm statistics, moments and count.
+
+    Same ``round_fn`` signature and outputs as ``make_local_round`` (aux sums
+    are empty; ``extra_state`` must be None)."""
+    augment_views = _view_maker(view_mode, augment_backend, mean, std)
+    n_views = 1 if view_mode == "single" else 2
+    pnames = [n for n, _ in model.named_parameters()]
+
+    def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
+        if extra_state:
+            raise ValueError("the stacked round carries no teacher or per-client state")
+        pos_valid = plan["pos_valid"]
+        S, K, _ = pos_valid.shape
+        device, pos_d, valid_d, rows, cast = _step_setup(
+            data, plan, compute_dtype, needs_global, global_model, global_vars)
+        made = _round_views(plan, hoist_augment, n_views, data, pos_d, generator,
+                            view_mode=view_mode, augment_backend=augment_backend,
+                            mean=mean, std=std)
+        svars = {n: v.unsqueeze(0).expand((K,) + v.shape).clone(
+            memory_format=torch.contiguous_format) for n, v in global_vars.items()}
+        leaves = [svars[n].requires_grad_() for n in pnames]
+        exp_avgs = [torch.zeros_like(t) for t in leaves]
+        exp_avg_sqs = [torch.zeros_like(t) for t in leaves]
+
+        def slices(ts, k):
+            return [t.detach()[k] for t in ts]
+
+        # client k's Adam works on the k-th slices, with counts of its own
+        per_client = [(slices(leaves, k), slices(exp_avgs, k), slices(exp_avg_sqs, k),
+                       [torch.tensor(0.0) for _ in leaves]) for k in range(K)]
+        loss_sum = torch.zeros((K,), dtype=torch.float32, device=device)
+        cnt = torch.zeros((K,), dtype=torch.float32, device=device)
+        for s in range(S):
+            stepping = np.flatnonzero(pos_valid[s].any(1))
+            if not len(stepping):
+                continue
+            p = pos_d[s]
+            if made is None:
+                views = augment_views(data["images"][data["idx"][rows, p]], generator)
+            else:
+                views = {n: v[s] for n, v in made.items()}
+            sample = {n: t[rows, p] for n, t in plan["sample"].items()}
+            sample["_pos"] = p
+            with cast:
+                if needs_global:
+                    with torch.no_grad():
+                        _add_global_logits(global_model, views)
+                loss, loss_k, new_stats = stacked_loss_fn(
+                    model, svars, views, sample, valid_d[s], data["ctx"], generator,
+                    scalars)
+            grads = torch.autograd.grad(loss, leaves)
+            update = ([], [], [], [], [])
+            for k in stepping:
+                prm, m, v, st = per_client[k]
+                for lst, ts in zip(update, (prm, [g[k] for g in grads], m, v, st)):
+                    lst.extend(ts)
+            adam_update(*update, lr)
+            keep = torch.as_tensor(pos_valid[s].any(1), device=device)
+            with torch.no_grad():
+                for n, new in new_stats.items():
+                    held = keep.view((K,) + (1,) * (new.dim() - 1))
+                    svars[n].copy_(torch.where(held, new, svars[n]))
+                loss_sum += torch.where(keep, loss_k.detach().float(), 0.0)
+                cnt += keep
+        mean_losses = loss_sum / torch.clamp(cnt, min=1.0)
+        return {"vars": {n: svars[n].detach() for n in global_vars}}, mean_losses, {}
 
     return round_fn
 

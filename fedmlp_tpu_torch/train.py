@@ -2,8 +2,11 @@
 
 The trainer owns the host-side pieces: datasets, partition, label hiding,
 batch plans (the JAX package's numpy stream, so the plans are identical),
-server-side algorithm state, evaluation cadence. A round trains every client
-in turn on one working module (``parallel/fl_runtime.py``).
+server-side algorithm state, evaluation cadence. A round runs on one of
+three engines (``parallel/fl_runtime.py``, ``engine_of``): the per-client
+loop, which trains every client in turn on one working module; the lockstep
+order (``batched_global='on'``), steps outside and clients inside; and the
+channel-stacked clients (``client_stacking='on'``, ``models/stacked.py``).
 
 Precision: parameters and Adam state are float32. With
 ``compute_dtype='bfloat16'`` the forwards run under bf16 autocast on the
@@ -42,16 +45,32 @@ log = logging.getLogger("fedmlp_tpu_torch")
 
 
 class UnportedConfigError(ValueError):
-    """A ``Config`` value asks for something the port does not implement."""
+    """A ``Config`` value asks for something the port does not run."""
+
+
+ENGINE_MODES = ("auto", "on", "off")
+
+
+def engine_of(cfg: Config) -> str:
+    """The round engine ``cfg`` selects: 'stacked' (``client_stacking='on'``),
+    'lockstep' (``batched_global='on'``) or 'mapped', the per-client loop.
+    'auto' is off for both: the JAX package turns them on only on a TPU
+    (``fedmlp_tpu/train.py:333-425``)."""
+    if cfg.client_stacking == "on":
+        return "stacked"
+    return "lockstep" if cfg.batched_global == "on" else "mapped"
 
 
 def check_ported(cfg: Config) -> None:
     """Raise :class:`UnportedConfigError`, naming the field, for every
     ``Config`` value that selects an algorithm, model, backend or engine of
-    the JAX package that the port has not got. 'auto' and empty values
-    resolve to what the port does: the per-client loop engine, separate
-    forwards per view, views made in the step, device-resident data,
-    grouped-conv depthwise."""
+    the JAX package that the port has not got, and for every engine
+    combination that the port refuses. 'auto' and empty values resolve to
+    what the port does: the per-client loop engine, separate forwards per
+    view, views made in the step, device-resident data, grouped-conv
+    depthwise. ``scan_unroll``, ``client_unroll``, ``small_pack`` and, where
+    no lockstep engine runs the one-forward loss, ``view_precat`` only shape
+    the JAX package's XLA program and are the identity here."""
     bad = []
 
     def need(ok: bool, field_name: str, value, have: str) -> None:
@@ -64,18 +83,12 @@ def check_ported(cfg: Config) -> None:
          "have the JAX registry's names and aliases")
     need(cfg.dw_backend in ("",) + DW_BACKENDS, "dw_backend", cfg.dw_backend,
          f"have '' and {DW_BACKENDS}")
-    need(cfg.client_stacking in ("auto", "off"), "client_stacking",
-         cfg.client_stacking, "the channel-stacked engine is not ported")
-    need(cfg.batched_global in ("auto", "off"), "batched_global",
-         cfg.batched_global, "the lockstep engine is not ported")
-    need(cfg.view_precat in ("auto", "off"), "view_precat", cfg.view_precat,
-         "a lockstep-engine option; the lockstep engine is not ported")
+    for name in ("client_stacking", "batched_global", "view_precat"):
+        need(getattr(cfg, name) in ENGINE_MODES, name, getattr(cfg, name),
+             f"have {ENGINE_MODES}")
     need(not cfg.weight_stream, "weight_stream", cfg.weight_stream, "have 0")
     need(not cfg.remat, "remat", cfg.remat, "have 0")
     need(not cfg.remat_stages, "remat_stages", cfg.remat_stages, "have ''")
-    need(cfg.scan_unroll == 1, "scan_unroll", cfg.scan_unroll, "have 1")
-    need(not cfg.client_unroll, "client_unroll", cfg.client_unroll, "have 0")
-    need(not cfg.small_pack, "small_pack", cfg.small_pack, "have 0")
     need(cfg.param_dtype == "float32", "param_dtype", cfg.param_dtype,
          "parameters are float32")
     need(cfg.compute_dtype in ("float32", "bfloat16"), "compute_dtype",
@@ -96,8 +109,46 @@ def check_ported(cfg: Config) -> None:
         bad.append(f"fedmlp.stage2_distill=True with pre_augment={cfg.pre_augment} "
                    "is refused: stage 2's distillation needs its single view, and "
                    "pre-made views are the algorithm's two")
+    if cfg.algorithm in algo_registry.registered() and model_is_ported(cfg.model):
+        bad += _engine_refusals(cfg)
     if bad:
         raise UnportedConfigError("; ".join(bad))
+
+
+def _engine_refusals(cfg: Config) -> list:
+    """What ``client_stacking='on'`` or ``batched_global='on'`` cannot run
+    (the JAX package's refusals, ``fedmlp_tpu/train.py:313-383``, and one of
+    the port's own: no knob is accepted and then ignored)."""
+    from fedmlp_tpu_torch.models.stacked import supports_stacking
+
+    algo = algo_registry.get_algorithm(cfg.algorithm)
+    stacked = cfg.client_stacking == "on"
+    lockstep = cfg.batched_global == "on"
+    bad = []
+    if stacked and lockstep:
+        bad.append("client_stacking='on' with batched_global='on' is refused: "
+                   "choose one engine")
+    if stacked and not hasattr(algo, "stacked_loss_fn"):
+        bad.append(f"client_stacking='on' is refused: algorithm {cfg.algorithm!r} "
+                   "has no stacked loss (have fedavg, centralized, fedmlp)")
+    if stacked and not supports_stacking(build_model(cfg.model, cfg.n_classes,
+                                                     image_size=cfg.data.image_size)):
+        bad.append(f"client_stacking='on' is refused: model {cfg.model!r} has no "
+                   "stacked forward (have smallcnn and efficient_b0..b7)")
+    if stacked and cfg.data.host_stream:
+        bad.append("client_stacking='on' with data.host_stream=True is refused: "
+                   "the stacked engine has no windowed carry")
+    if stacked and cfg.view_concat == "on" and hasattr(algo, "loss_fn_viewcat"):
+        bad.append("view_concat='on' with client_stacking='on' is refused: the "
+                   "stacked engine runs the algorithm's two forwards")
+    if lockstep and not algo.NEEDS_GLOBAL:
+        bad.append(f"batched_global='on' is refused: algorithm {cfg.algorithm!r} "
+                   "does not need the global model (have fedmlp, fednoro)")
+    if (stacked or lockstep) and cfg.pre_augment > 0:
+        bad.append(f"pre_augment={cfg.pre_augment} with "
+                   f"{'client_stacking' if stacked else 'batched_global'}='on' is "
+                   "refused: that engine makes its views in the step")
+    return bad
 
 
 def partition_cache_path(cfg: Config, train_ds: ArrayDataset) -> Optional[str]:
@@ -203,13 +254,26 @@ class Trainer:
         self.global_vars = {n: v.detach().clone()
                             for n, v in self.model.state_dict().items()}
 
-        # ---- algorithm ----
+        # ---- algorithm and engine ----
         self.algo = algo_registry.get_algorithm(cfg.algorithm)
         self.global_model = (self._frozen_twin()
                              if self.algo.NEEDS_GLOBAL or cfg.fedmlp.stage2_distill
                              else None)
         self.teacher_model = (self._frozen_twin()
                               if getattr(self.algo, "NEEDS_TEACHER", False) else None)
+        self.engine = engine_of(cfg)
+        log.info("engine: %s", {
+            "stacked": "channel-stacked lockstep clients",
+            "lockstep": "lockstep clients (K·B-batched views and frozen-global forwards)",
+            "mapped": "per-client loop"}[self.engine])
+        if self.engine == "lockstep" and cfg.hoist_augment:
+            log.warning("engine: hoist_augment=%d does not reach the lockstep engine, "
+                        "which makes each step's views in the step (as the JAX "
+                        "package's)", cfg.hoist_augment)
+        if self.engine == "stacked" and cfg.dw_backend == "pallas":
+            log.warning("engine: dw_backend='pallas' does not reach the stacked "
+                        "forward, which runs grouped convolutions (as the JAX "
+                        "package's)")
         # 'auto' is off: the JAX package turns it on only on a TPU
         # (fedmlp_tpu/train.py:200-211)
         loss_fn = self.algo.loss_fn
@@ -217,15 +281,11 @@ class Trainer:
             loss_fn = self.algo.loss_fn_viewcat
             log.info("engine: dual views concatenated into one 2B forward")
         self._pre_augment_chunk = self._resolve_pre_augment(cfg)
-        self.round_fn = rt.make_local_round(
-            self.model, loss_fn,
-            lr=cfg.base_lr, batch_size=cfg.batch_size,
-            mean=cfg.data.mean, std=cfg.data.std,
+        self.round_fn = self.make_round(
+            loss_fn, getattr(self.algo, "stacked_loss_fn", None),
             view_mode=self.algo.VIEW_MODE, needs_global=self.algo.NEEDS_GLOBAL,
-            augment_backend=cfg.data.augment_backend,
-            compute_dtype=cfg.compute_dtype, global_model=self.global_model,
-            hoist_augment=bool(cfg.hoist_augment),
-        )
+            view_precat=(cfg.view_precat == "on"
+                         and loss_fn is getattr(self.algo, "loss_fn_viewcat", None)))
         self.server_state = (
             self.algo.init_server_state(self)
             if hasattr(self.algo, "init_server_state") else {}
@@ -238,6 +298,24 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(cfg.seed)
         self.iter_num = 0  # lifetime local-step counter (reference iter_num)
+
+    def make_round(self, loss_fn, stacked_loss_fn=None, *, view_mode: str,
+                   needs_global: bool, view_precat: bool = False):
+        """A round function on this trainer's engine: ``stacked_loss_fn`` on
+        the stacked engine, ``loss_fn`` on the others."""
+        cfg = self.cfg
+        kw = dict(lr=cfg.base_lr, batch_size=cfg.batch_size, mean=cfg.data.mean,
+                  std=cfg.data.std, view_mode=view_mode, needs_global=needs_global,
+                  augment_backend=cfg.data.augment_backend,
+                  compute_dtype=cfg.compute_dtype, global_model=self.global_model)
+        if self.engine == "stacked":
+            return rt.make_stacked_local_round(self.model, stacked_loss_fn,
+                                               hoist_augment=bool(cfg.hoist_augment), **kw)
+        if self.engine == "lockstep":
+            return rt.make_lockstep_local_round(self.model, loss_fn,
+                                                view_precat=view_precat, **kw)
+        return rt.make_local_round(self.model, loss_fn,
+                                   hoist_augment=bool(cfg.hoist_augment), **kw)
 
     def _build_model(self):
         """An uninitialized module of ``cfg.model``: the one place the

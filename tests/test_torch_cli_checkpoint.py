@@ -96,13 +96,14 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 @pytest.mark.parametrize("extra,message", [
     (["--exp", "FedMLP", "--model", "Resnet18", "--remat", "1"], "remat=1 is not ported"),
     (["--exp", "FedAVG", "--model", "Resnet18", "--client_stacking", "on"],
-     "client_stacking='on' is not ported"),
+     "client_stacking='on' is refused: model 'Resnet18' has no stacked forward"),
     (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1"],
      "data.host_stream=True is not ported"),
-    (["--exp", "FedAVG+FixMatch", "--client_unroll", "1"],
-     "client_unroll=1 is not ported"),
-    (["--exp", "CBAFed", "--small_pack", "64"], "small_pack=64 is not ported"),
+    (["--exp", "FedAVG+FixMatch", "--batched_global", "on"],
+     "batched_global='on' is refused: algorithm 'fixmatch' does not need the global"),
+    (["--exp", "CBAFed", "--client_stacking", "on"],
+     "client_stacking='on' is refused: algorithm 'cbafed' has no stacked loss"),
 ])
 def test_cli_exits_with_a_message_for_what_is_not_ported(tmp_path, extra, message):
     argv = _SMALL + ["--output_dir", str(tmp_path)] + extra
@@ -128,14 +129,14 @@ def _cfg(**kw):
     ("dw_backend", dict(dw_backend="taps")),
     ("dw_backend", dict(dw_backend="dense")),
     ("dw_backend", dict(dw_backend="reroute")),
-    ("client_stacking", dict(client_stacking="on")),
+    ("client_stacking", dict(client_stacking="on", model="resnet18")),
     ("weight_stream", dict(weight_stream=1)),
     ("data.host_stream", dict(data=DataConfig(name="synthetic", host_stream=True))),
     ("remat", dict(remat=1)),
-    ("scan_unroll", dict(scan_unroll=2)),
-    ("small_pack", dict(small_pack=64)),
+    ("pre_augment", dict(pre_augment=16, client_stacking="on")),
+    ("view_concat", dict(algorithm="fedmlp", view_concat="on", client_stacking="on")),
     ("param_dtype", dict(param_dtype="bfloat16")),
-    ("view_precat", dict(view_precat="on")),
+    ("view_precat", dict(view_precat="sometimes")),
     ("model", dict(model="resnet9")),
     ("batched_global", dict(batched_global="on")),
     ("remat_stages", dict(remat_stages="2,3")),

@@ -66,12 +66,13 @@ def test_fused_warp_kernel_matches_plain_version(card, B, S, degrees):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [2560, 3600])
+@pytest.mark.parametrize("N", [640, 2560, 3600])
 def test_fused_warp_kernel_over_a_whole_round_of_images(card, N):
     """One launch over every view image of a hoisted round (N = S·K·B =
-    2560 at the flagship's stage 2), equal bit for bit to the same images
-    in launches of 32: the kernel works image by image. At N = 3600 the
-    output passes 2^31 bytes, so every byte offset must be 64-bit."""
+    2560 at the flagship's stage 2) or of a lockstep or stacked step's view
+    (N = K·B = 640), equal bit for bit to the same images in launches of
+    32: the kernel works image by image. At N = 3600 the output passes 2^31
+    bytes, so every byte offset must be 64-bit."""
     imgs, params, flip = _batch(card, N, 224, seed=N)
     W.reset_launch_counts()
     got = W.fused_warp_normalize(imgs, params, flip, MEAN, STD)
@@ -583,3 +584,67 @@ def test_conv_bn_bf16_kernels_write_nothing_past_m(card, M, Ci, Co):
     assert torch.equal(y_buf[:M], y) and torch.equal(out_buf[:M], out)
     assert torch.equal(s_into, s) and torch.equal(ss_into, ss)
     assert torch.equal(mean_into, mean) and torch.equal(var_into, var)
+
+
+# ----------------------------------------------------------------------
+# The lockstep and stacked engines on the card (float32 with TF32 off, as
+# the Trainer sets it)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+def test_lockstep_round_matches_the_loop_on_the_card(card):
+    """One FedMLP stage-1 round, K=4, smallcnn at 32 px, float32, 'normonly'
+    views: the lockstep engine's client losses within 1e-4 relative of the
+    per-client loop's (its frozen-global forward runs at K·B = 32 images
+    against 8, which may pick another cuDNN algorithm)."""
+    from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
+    from fedmlp_tpu_torch.train import Trainer
+
+    losses = {}
+    for mode in ("off", "on"):
+        cfg = Config(algorithm="fedmlp", model="smallcnn", batch_size=8, base_lr=1e-3,
+                     n_clients=4, seed=7, compute_dtype="float32", output_dir="",
+                     fedmlp=FedMLPConfig(rounds_stage1=2), batched_global=mode,
+                     data=DataConfig(name="synthetic", n_classes=4, image_size=32,
+                                     synthetic_train_size=96, synthetic_test_size=16,
+                                     augment_backend="normonly"))
+        tr = Trainer(cfg, device=card)
+        assert tr.engine == ("lockstep" if mode == "on" else "mapped")
+        losses[mode] = torch.tensor(tr.run_round(0).client_losses)
+    rel = ((losses["on"] - losses["off"]).abs() / losses["off"].abs()).max()
+    assert float(rel) <= 1e-4, (losses, float(rel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 5e-2)])
+def test_stacked_forward_matches_per_client_forwards_on_the_card(card, no_tf32, dtype,
+                                                                  tol):
+    """EfficientNet-B0 at 64 px, 3 clients of different weights, B=4, eval
+    and train mode (bf16 under autocast, as the Trainer runs it): each
+    client's stacked logits within ``tol`` of the largest magnitude of its
+    own forward's (float32 1e-3, ``chip_smoke.py``'s ``ZOO_REL_TOL``; bf16
+    5e-2: 8 bits of mantissa through 16 blocks in two orders)."""
+    from fedmlp_tpu_torch.models import build_model, init_model
+    from fedmlp_tpu_torch.models.stacked import stacked_apply
+
+    models = [init_model(build_model("efficient_b0", 5), seed).to(card) for seed in range(3)]
+    sv = {n: torch.stack([m.state_dict()[n] for m in models])
+          for n in models[0].state_dict()}
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn((3, 4, 3, 64, 64), generator=g, device=card)
+    cast = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16)
+    for train in (False, True):
+        with torch.no_grad(), cast:
+            (_, logits), _ = stacked_apply(models[0], sv, x, train=train)
+            for k, m in enumerate(models):
+                want = m.train(train)(x[k])[1].float()
+                err = (logits[k].float() - want).abs().max() / want.abs().max()
+                assert float(err) <= tol, (train, k, float(err))
