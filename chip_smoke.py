@@ -97,14 +97,26 @@ first failure:
    20 do not fit in the card's memory), 2 + 1 rounds with their peak
    memory; then a float32 stacked forward of B0 at 224 px over 2 clients
    against their own forwards, within 1e-3 of the largest logit.
-16. profile, profile_strong, profile_convbn, time_b5b6, time_views (only
+16. slice_knobs: the flagship with each model-side knob, K cut to 1
+   client, one counted stage-1 round each (round 0 of two, so no
+   harvest), beside ``slice``'s round 0, with the peak memory:
+   ``dw_backend`` 'taps', 'dense' and 'reroute', ``remat=1``,
+   ``remat_stages='0,1'`` and ``weight_stream=1``, each launching
+   ``fused_warp_normalize`` twice a step and nothing else.
+   Then the gates: each new backend's float32 B0 forward and backward
+   against 'conv'; remat steps of B0 and ResNet-18 against no remat, and a
+   ``weight_stream`` step against the step on bf16-rounded parameters, with
+   cuDNN deterministic.
+17. profile, profile_strong, profile_convbn, time_b5b6, time_views,
+   time_knobs (only
    when asked for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
    device operations of the normalize/flip/cutout and BCE kernels alone
    (this script copied into another commit's checkout times that commit's
    kernels); the rounds of trainers that make their views in the step,
-   hoisted, before the round, or concatenated, run in turns.
+   hoisted, before the round, or concatenated, run in turns; the rounds of
+   slice_knobs' trainers at K=4, each beside a knob-free trainer's.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -1148,8 +1160,9 @@ def hoisted(tr, n_views: int) -> bool:
             and views_positions(tr) * n_views <= HOIST_MAX_VIEWS)
 
 
-# seconds of each round of each path run so far, by path
+# seconds and peak memory (GiB) of each round of each path run so far, by path
 ROUND_SECONDS = {}
+PEAK_GIB = {}
 
 
 def reset_launch_counts() -> None:
@@ -1240,6 +1253,7 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
         secs = time.perf_counter() - t1
         losses.extend(rec.client_losses)
         ROUND_SECONDS.setdefault(path, []).append(secs)
+        PEAK_GIB.setdefault(path, []).append(torch.cuda.max_memory_allocated() / 2**30)
         print(f"phase {path}: round {rnd} (stage {1 if rnd < stage1_rounds else 2}) "
               f"{secs:.3f} s {imgs_per_round / secs:.1f} img/s "
               f"mean loss {sum(rec.client_losses) / n_clients:.5f} "
@@ -1278,15 +1292,18 @@ def phase_slice(dev, card: str) -> dict:
     return run_flagship("slice", dev, card, flagship_config(K, N), 2, 3)
 
 
-def print_beside_slice(path: str, card: str, n_images: int = N) -> None:
-    """Each round of ``path`` (``n_images`` a round) beside ``slice``'s round
-    of the same index from this run: seconds and images/s."""
-    base = ROUND_SECONDS.get("slice")
+def print_beside_slice(path: str, card: str, n_images: int = N,
+                       base_path: str = "slice", base_images: int = N) -> None:
+    """Each round of ``path`` (``n_images`` a round) beside ``base_path``'s
+    round of the same index from this run (``base_images`` a round):
+    seconds, images/s and peak memory."""
+    base, base_peak = ROUND_SECONDS.get(base_path), PEAK_GIB.get(base_path)
     for rnd, t in enumerate(ROUND_SECONDS[path]):
-        other = (f"slice round {rnd} {base[rnd]:.3f} s ({N / base[rnd]:.1f} img/s)"
-                 if base and rnd < len(base) else "nothing")
-        print(f"phase {path}: round {rnd} {t:.3f} s ({n_images / t:.1f} img/s) beside "
-              f"{other} [{card}]")
+        other = (f"{base_path} round {rnd} {base[rnd]:.3f} s "
+                 f"({base_images / base[rnd]:.1f} img/s, "
+                 f"peak {base_peak[rnd]:.2f} GiB)" if base and rnd < len(base) else "nothing")
+        print(f"phase {path}: round {rnd} {t:.3f} s ({n_images / t:.1f} img/s, peak "
+              f"{PEAK_GIB[path][rnd]:.2f} GiB) beside {other} [{card}]")
 
 
 # the lockstep gate: client losses of one round against the per-client
@@ -1420,6 +1437,245 @@ def phase_slice_views(dev, card: str) -> dict:
         print(f"phase slice_views: round {rnd} (stage {stage}) {t:.3f} s "
               f"({imgs / t:.1f} img/s) beside {'; '.join(base) or 'nothing'} [{card}]")
     return launches
+
+
+# the paths of slice_knobs and time_knobs: (path, Config fields)
+KNOBS = (
+    ("slice_taps", dict(dw_backend="taps")),
+    ("slice_dense", dict(dw_backend="dense")),
+    ("slice_reroute", dict(dw_backend="reroute")),
+    ("slice_remat", dict(remat=1)),
+    ("slice_remat_stages", dict(remat_stages="0,1")),
+    ("slice_weight_stream", dict(weight_stream=1)),
+)
+# time_knobs' yardstick: the same trainer without a knob, run first
+KNOBS_OFF = ("slice_knobs_off", {})
+# clients of the knob trainers, 128 images each as the flagship's: one in
+# slice_knobs (4 steps drive and count each path), four in time_knobs
+KNOB_CLIENTS = 1
+TIME_KNOB_CLIENTS = 4
+# the remat gate: logits, gradients and running statistics of a remat step
+# against the step without, each set relative to its largest magnitude
+REMAT_REL_TOL = 1e-6
+
+
+def run_stage1_round(path: str, dev, card: str, cfg) -> dict:
+    """One counted stage-1 round (round 0 of ``cfg``'s two: no harvest, no
+    evaluation) of the FedMLP ``Trainer``, launch counts set to 0 just
+    before and read just after: two weak views a real step, nothing else.
+    Its seconds go to ``ROUND_SECONDS[path]``, its peak to
+    ``PEAK_GIB[path]``."""
+    from fedmlp_tpu_torch.train import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, device=dev)
+    torch.cuda.synchronize()
+    print(f"phase {path}: setup {time.perf_counter() - t0:.2f} s")
+    valid = tr.fd.valid.cpu().numpy()
+    steps = sum(int(math.ceil(n / B)) for n in valid.sum(1)) * cfg.local_ep
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    rec = tr.run_round(0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ROUND_SECONDS[path] = [secs]
+    PEAK_GIB[path] = [peak]
+    print(f"phase {path}: round 0 (stage 1) {secs:.3f} s "
+          f"{int(valid.sum()) * cfg.local_ep / secs:.1f} img/s mean loss "
+          f"{sum(rec.client_losses) / tr.n_clients:.5f} peak memory {peak:.2f} GiB "
+          f"[{card}]")
+    if not all(math.isfinite(x) for x in rec.client_losses):
+        raise SystemExit(f"{path}: non-finite client losses {rec.client_losses}")
+    check_launches(path, launches, {"fused_warp_normalize": 2 * steps})
+    return launches
+
+
+def _relative(a: dict, b: dict) -> float:
+    """The largest difference between the tensors of ``a`` and ``b`` (same
+    names) over the largest magnitude of ``b``'s: one scale for a whole set,
+    since some gradients are zero but for rounding (a batch-norm bias
+    followed by a convolution and another batch norm)."""
+    diff = max(float((a[n].double() - b[n].double()).abs().max()) for n in b)
+    return diff / max(float(b[n].abs().max()) for n in b)
+
+
+def _train_step(model, x, ct, generator=None, params=None):
+    """A train-mode forward of ``model`` (through ``functional_call`` on
+    ``params`` where given), then the backward of ``ct`` from the logits:
+    (logits, {name: gradient}, {name: buffer})."""
+    from fedmlp_tpu_torch.parallel.fl_runtime import _LossCall
+
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    if params is None:
+        _, logits = model(x, generator)
+    else:
+        call = _LossCall(model, lambda m, x, g: m(x, g)[1])
+        logits = torch.func.functional_call(call, params, (x, generator))
+    logits.float().backward(ct)
+    return (logits.detach().float(),
+            {n: p.grad.clone() for n, p in model.named_parameters()},
+            {n: b.clone() for n, b in model.named_buffers()})
+
+
+def knob_gates(dev, card: str) -> None:
+    """The gates of slice_knobs, on the card after the counted span; each
+    failure raises.
+
+    (a) Each new depthwise backend's train-mode B0 forward and backward
+    against 'conv' from one state dict, float32, TF32 off, B=4 at 224 px:
+    the logits, and all parameter gradients, within ``ZOO_REL_TOL`` of the
+    largest magnitude of 'conv''s (``_relative``).
+    (b) A remat step (every block, and stages 0 and 1) against the step
+    without, B0 with drop-connect from a generator and ResNet-18, bf16
+    autocast, B=8 at 224 px, cuDNN deterministic: the loss, every gradient
+    and every running statistic within ``REMAT_REL_TOL``; the print says
+    whether they were equal bits. Each set (logits, gradients, statistics)
+    is measured as ``_relative`` measures it.
+    (c) A ``weight_stream`` step (``streamed_params`` through
+    ``functional_call``) against the step on parameters rounded to bf16
+    first, B0, bf16 autocast, cuDNN deterministic: the logits within
+    ``REMAT_REL_TOL``, the gradients within one bf16 ulp (2⁻⁸) of the
+    largest magnitude of the reference's, rounded to bf16 (the cotangent
+    of JAX's cast), buffers float32."""
+    from fedmlp_tpu_torch.models import build_model, init_model
+    from fedmlp_tpu_torch.parallel.fl_runtime import streamed_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x4 = torch.randn((4, 3, SIZE, SIZE), generator=g, device=dev)
+    ct4 = torch.randn((4, N_CLASSES), generator=g, device=dev)
+    sd = init_model(build_model("efficient_b0", N_CLASSES), 3).state_dict()
+    ref = None
+    for backend in ("conv", "taps", "dense", "reroute"):
+        t0 = time.perf_counter()
+        m = build_model("efficient_b0", N_CLASSES, dw_backend=backend)
+        m.load_state_dict(sd)
+        out = _train_step(m.to(dev), x4, ct4)
+        if ref is None:
+            ref = out
+            continue
+        err = max(_relative({"y": out[0]}, {"y": ref[0]}), _relative(out[1], ref[1]))
+        print(f"phase slice_knobs: gate dw_backend={backend} against 'conv', B0 "
+              f"float32 (TF32 off) train B=4 {SIZE} px: logits and gradients "
+              f"relative error {err:.3e} (tol {ZOO_REL_TOL:g}; "
+              f"{time.perf_counter() - t0:.1f} s) [{card}]")
+        if not err <= ZOO_REL_TOL:
+            raise SystemExit(f"slice_knobs: dw_backend={backend} off 'conv' by {err}")
+
+    x8 = torch.randn((8, 3, SIZE, SIZE), generator=g, device=dev)
+    ct8 = torch.randn((8, N_CLASSES), generator=g, device=dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, kws in (("efficient_b0", (dict(remat=True), dict(remat_stages=(0, 1)))),
+                          ("resnet18", (dict(remat=True),))):
+            t0 = time.perf_counter()
+            sd = init_model(build_model(name, N_CLASSES), 4).state_dict()
+            outs = []
+            for kw in ({},) + kws:
+                m = build_model(name, N_CLASSES, **kw)
+                m.load_state_dict(sd)
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(9)
+                with torch.autocast("cuda", dtype=torch.bfloat16):
+                    outs.append(_train_step(m.to(dev), x8, ct8, gen) + (gen.get_state(),))
+            for kw, out in zip(kws, outs[1:]):
+                errs = [_relative({"y": out[0]}, {"y": outs[0][0]}),
+                        _relative(out[1], outs[0][1]), _relative(out[2], outs[0][2])]
+                same = (all(torch.equal(out[i][n], outs[0][i][n])
+                            for i in (1, 2) for n in outs[0][i])
+                        and torch.equal(out[0], outs[0][0]))
+                print(f"phase slice_knobs: gate {name} {kw} against no remat, bf16 "
+                      f"train B=8 {SIZE} px, cuDNN deterministic: loss, gradients and "
+                      f"running statistics relative error {max(errs):.3e} (tol "
+                      f"{REMAT_REL_TOL:g}), equal bits {same}, generator state equal "
+                      f"{torch.equal(out[3], outs[0][3])} ({name}: "
+                      f"{time.perf_counter() - t0:.1f} s) [{card}]")
+                if not (max(errs) <= REMAT_REL_TOL and torch.equal(out[3], outs[0][3])):
+                    raise SystemExit(f"slice_knobs: {name} {kw} off no remat by {max(errs)}")
+
+        t0 = time.perf_counter()
+        sd = init_model(build_model("efficient_b0", N_CLASSES), 6).state_dict()
+        m = build_model("efficient_b0", N_CLASSES).to(dev)
+        m.load_state_dict(sd)
+        rounded = {n: v.to(torch.bfloat16).float() if v.is_floating_point() and n in
+                   dict(m.named_parameters()) else v for n, v in sd.items()}
+        outs = []
+        for streamed in (True, False):
+            m.load_state_dict(sd if streamed else rounded)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(9)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                outs.append(_train_step(
+                    m, x8, ct8, gen,
+                    streamed_params(m, torch.bfloat16) if streamed else None))
+        (ls, gs, bs), (lr_, gr, _) = outs
+        want = {n: v.to(torch.bfloat16).float() for n, v in gr.items()}
+        err = _relative({"y": ls}, {"y": lr_})
+        gerr = _relative(gs, want)
+        same = all(torch.equal(gs[n], want[n]) for n in gr)
+        f32 = all(b.dtype == torch.float32 for n, b in bs.items() if b.is_floating_point())
+        print(f"phase slice_knobs: gate weight_stream against the step on parameters "
+              f"rounded to bf16, B0 bf16 train B=8 {SIZE} px, cuDNN deterministic: "
+              f"logits relative error {err:.3e} (tol {REMAT_REL_TOL:g}), gradients "
+              f"against the bf16-rounded reference {gerr:.3e} (tol {2.0 ** -8:g}), "
+              f"equal bits {same}, buffers float32 {f32} "
+              f"({time.perf_counter() - t0:.1f} s) [{card}]")
+        if not (err <= REMAT_REL_TOL and gerr <= 2.0 ** -8 and f32):
+            raise SystemExit(f"slice_knobs: weight_stream off the rounded step "
+                             f"({err}, {gerr}, buffers float32 {f32})")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def knob_rounds(dev, card: str, n_clients: int, paths, yardstick: str = "") -> dict:
+    """One counted stage-1 round (``run_stage1_round``) of the flagship
+    geometry cut to ``n_clients`` clients with each of ``paths``' knobs,
+    beside ``slice``'s round 0 and, where given, beside the round of the
+    path ``yardstick``. Returns the launches by path."""
+    import gc
+
+    by_path = {}
+    n_train = n_clients * N // K
+    for path, kw in paths:
+        by_path[path] = run_stage1_round(path, dev, card,
+                                         flagship_config(n_clients, n_train, **kw))
+        print_beside_slice(path, card, n_train)
+        if yardstick and path != yardstick:
+            print_beside_slice(path, card, n_train, yardstick, n_train)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_slice_knobs(dev, card: str) -> dict:
+    """The model-side knobs through the ``Trainer``: one counted stage-1
+    round each of ``dw_backend`` 'taps', 'dense' and 'reroute', ``remat=1``,
+    ``remat_stages='0,1'`` and ``weight_stream=1`` at the flagship geometry
+    with ``KNOB_CLIENTS`` client (round 0 of two, so no harvest); then
+    ``knob_gates``. Returns the launches by path."""
+    t0 = time.perf_counter()
+    by_path = knob_rounds(dev, card, KNOB_CLIENTS, KNOBS)
+    t1 = time.perf_counter()
+    knob_gates(dev, card)
+    print(f"phase slice_knobs: rounds {t1 - t0:.1f} s, gates "
+          f"{time.perf_counter() - t1:.1f} s [{card}]")
+    return by_path
+
+
+def phase_time_knobs(dev, card: str) -> None:
+    """The knobs' rounds at ``TIME_KNOB_CLIENTS`` clients, each beside the
+    round 0 of a trainer without a knob (``slice_knobs_off``, run first in
+    this phase: ``slice``'s round 0 carries the process's first calls) and
+    with its peak memory; the launches are checked as in slice_knobs."""
+    knob_rounds(dev, card, TIME_KNOB_CLIENTS, (KNOBS_OFF,) + KNOBS, KNOBS_OFF[0])
 
 
 def phase_slice_resnet18(dev, card: str) -> dict:
@@ -2213,6 +2469,7 @@ _PATH_KERNELS = {
     "slice_views": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad"),
     "slice_preaug": ("fused_warp_normalize", "hshift_rows", "bce_with_logits_masked_sum",
                      "bce_with_logits_masked_grad", "normalize_flip_cutout"),
+    **{path: ("fused_warp_normalize",) for path, _ in KNOBS},
 }
 
 
@@ -2300,12 +2557,12 @@ def main(argv=None) -> int:
                                         "slice_stacked,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
                                         "slice_resnet18,models_zoo,slice_views,"
-                                        "slice_preaug",
+                                        "slice_preaug,slice_knobs",
                     help="comma list of build,kernel,slice,slice_lockstep,slice_stacked,"
                          "slice_dw,cli,slice_strong,probe_convbn,slice_fednoro,"
                          "slice_baselines,slice_resnet18,models_zoo,slice_views,"
-                         "slice_preaug,profile,profile_strong,profile_convbn,time_b5b6,"
-                         "time_views")
+                         "slice_preaug,slice_knobs,profile,profile_strong,profile_convbn,"
+                         "time_b5b6,time_views,time_knobs")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2352,6 +2609,8 @@ def main(argv=None) -> int:
         by_path["slice_views"] = phase_slice_views(dev, card)
     if "slice_preaug" in phases:
         by_path["slice_preaug"] = phase_slice_preaug(dev, card)
+    if "slice_knobs" in phases:
+        by_path.update(phase_slice_knobs(dev, card))
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:
@@ -2370,6 +2629,8 @@ def main(argv=None) -> int:
         phase_time_b5b6(dev, card)
     if "time_views" in phases:
         phase_time_views(dev, card)
+    if "time_knobs" in phases:
+        phase_time_knobs(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

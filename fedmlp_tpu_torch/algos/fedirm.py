@@ -125,6 +125,7 @@ def _get_relation_fn(trainer):
             augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, teacher_model=trainer.teacher_model,
             hoist_augment=bool(cfg.hoist_augment),
+            weight_stream_dtype=trainer.weight_stream_dtype,
         )
     return trainer._fedirm_rel_fn
 

@@ -292,7 +292,8 @@ def _get_stage2_fn(trainer):
                 view_mode="single", needs_global=cfg.fedmlp.stage2_distill,
                 augment_backend=cfg.data.augment_backend,
                 compute_dtype=cfg.compute_dtype, global_model=trainer.global_model,
-                hoist_augment=bool(cfg.hoist_augment))
+                hoist_augment=bool(cfg.hoist_augment),
+                weight_stream_dtype=trainer.weight_stream_dtype)
         else:
             trainer._fedmlp_stage2_fn = trainer.make_round(
                 stage2_loss_fn, stage2_stacked_loss_fn, view_mode="single",

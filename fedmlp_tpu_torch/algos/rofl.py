@@ -150,6 +150,7 @@ def _get_fns(trainer):
             mean=cfg.data.mean, std=cfg.data.std, view_mode="single",
             post_step=post_step, augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, hoist_augment=bool(cfg.hoist_augment),
+            weight_stream_dtype=trainer.weight_stream_dtype,
         )
         trainer._rofl_harvest = rt.make_harvest_fn(
             trainer.model, cfg.data.mean, cfg.data.std, batch_size=cfg.batch_size * 4,

@@ -58,6 +58,7 @@ def _get_round_fn(trainer):
             augment_backend=cfg.data.augment_backend,
             compute_dtype=cfg.compute_dtype, teacher_model=trainer.teacher_model,
             hoist_augment=bool(cfg.hoist_augment),
+            weight_stream_dtype=trainer.weight_stream_dtype,
         )
     return trainer._rscfed_round_fn
 

@@ -151,10 +151,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the two views once a step (auto = off)")
     p.add_argument("--remat", type=int, default=0,
                    help="rematerialize backbone blocks in the backward "
-                        "pass (not ported)")
+                        "pass (EfficientNet, ResNet, SE-ResNet)")
     p.add_argument("--remat_stages", type=str, default="",
                    help="selective remat: comma list of EfficientNet "
-                        "stage indices (not ported)")
+                        "stage indices")
     p.add_argument("--client_unroll", type=int, default=0,
                    help="shapes the JAX package's XLA program; the identity here")
     p.add_argument("--small_pack", type=int, default=0,
@@ -164,7 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="EfficientNet depthwise-conv implementation (models/"
                         "efficientnet.py::MBConv): '' and 'conv' are the "
                         "grouped conv, 'pallas' adds the hand-written "
-                        "backward kernels; 'taps' and 'dense' are not ported")
+                        "backward kernels, 'taps' sums k*k shifted products, "
+                        "'dense' runs a diagonal dense conv in the layers of "
+                        "at most FEDMLP_DW_DENSE_MAXCH (192) depthwise "
+                        "channels; wider layers stay grouped")
     p.add_argument("--client_stacking", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="channel-stacked lockstep clients (auto = off)")
@@ -172,7 +175,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pre_augment", type=int, default=-1,
                    help="make each round's views before it, N images at a "
                         "time (-1 auto and 0 are off)")
-    p.add_argument("--weight_stream", type=int, default=0)
+    p.add_argument("--weight_stream", type=int, default=0,
+                   help="per-client loop with bfloat16 compute: each step "
+                        "reads the parameters rounded to bfloat16")
     p.add_argument("--batched_global", type=str, default="auto",
                    choices=["auto", "on", "off"],
                    help="lockstep loop order (auto = off)")

@@ -2,10 +2,10 @@
 
 The same frozen dataclasses with the same fields and defaults, so one set of
 settings drives either package. Fields that select engines of the JAX
-package which the port does not have yet (mesh, host streaming, remat,
-weight streaming) are kept for that parity: ``train.py::check_ported``
-accepts their 'auto', empty and off values and raises on any other, naming
-the field, so no knob is accepted and ignored; ``ROADMAP.md`` lists them.
+package which the port does not have yet (mesh, host streaming, a
+``param_dtype`` other than float32) are kept for that parity:
+``train.py::check_ported`` accepts their 'auto', empty and off values and
+raises on any other, naming the field, so no knob is accepted and ignored; ``ROADMAP.md`` lists them.
 ``scan_unroll``, ``client_unroll`` and ``small_pack`` only shape the JAX
 package's XLA program and are the identity here.
 """
@@ -154,7 +154,8 @@ class Config:
     # engine knobs, the JAX package's fields; check_ported raises on a value
     # the port has no engine for. client_stacking / batched_global 'on':
     # the stacked / lockstep engine ('auto' = off). dw_backend: '' or 'conv'
-    # (the grouped conv) and 'pallas' (ops/depthwise.py::DepthwisePallas)
+    # (the grouped conv), 'pallas', 'taps', 'dense', 'reroute'
+    # (ops/depthwise.py)
     scan_unroll: int = 1
     view_concat: str = "auto"
     view_precat: str = "auto"

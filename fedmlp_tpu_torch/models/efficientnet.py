@@ -5,18 +5,26 @@ Submodules carry the flax names (``stem_conv``, ``block{bi}_{r}.dw_conv``,
 ``head.fc``, ...), so ``weights.py`` maps weights between the two packages
 mechanically. The stem and every depthwise conv pad TF-"SAME" (extra pixel
 right/bottom) before an unpadded conv. ``dw_backend`` picks the depthwise
-convs: ``'conv'`` (default) is the grouped ``nn.Conv2d``; ``'pallas'`` is
-``ops/depthwise.py::DepthwisePallas``, the same forward with the
-hand-written backward kernels. Both keep one parameter ``dw_conv.weight``
-[C, 1, k, k], so a ``state_dict`` fits either. Batch norm follows
-flax: momentum 0.99 (0.01 here), eps 1e-3, biased variance. Dropout on the
-pooled feature and per-block stochastic depth are active in train mode
-when the forward is given a generator, as flax's are with a 'dropout' rng.
+convs (``ops/depthwise.py``): ``'conv'`` (default) is the grouped
+``nn.Conv2d``; ``'pallas'`` the same forward with the hand-written backward
+kernels; ``'taps'`` k² shifted products; ``'reroute'`` the grouped forward
+with JAX's rerouted backward; ``'dense'`` one dense convolution with a
+diagonal filter, in the blocks of at most ``FEDMLP_DW_DENSE_MAXCH`` (192)
+depthwise channels, the grouped ``nn.Conv2d`` in wider ones. All keep one
+parameter ``dw_conv.weight`` [C, 1, k, k], so a ``state_dict`` fits any.
+``remat`` rematerializes every block in the backward, ``remat_stages`` the
+blocks of the listed stages (indices into the block table), as JAX's
+``nn.remat(MBConv)``. Batch norm follows flax: momentum 0.99 (0.01 here),
+eps 1e-3, biased variance. Dropout on the pooled feature and per-block
+stochastic depth are active in train mode when the forward is given a
+generator, as flax's are with a 'dropout' rng; a block's drop-connect
+uniform is drawn before the block runs.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +34,30 @@ from fedmlp_tpu_torch.models.heads import make_head
 from fedmlp_tpu_torch.models.layers import (
     BatchNorm,
     drop_connect,
+    drop_connect_draw,
     dropout,
+    remat,
     same_pad,
     same_pads,
 )
-from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+from fedmlp_tpu_torch.ops.depthwise import (
+    DepthwiseDense,
+    DepthwiseModule,
+    DepthwisePallas,
+    DepthwiseReroute,
+    DepthwiseTaps,
+)
 
-DW_BACKENDS = ("conv", "pallas")
+DW_BACKENDS = ("conv", "pallas", "taps", "dense", "reroute")
+_DW_MODULES = {"pallas": DepthwisePallas, "taps": DepthwiseTaps,
+               "dense": DepthwiseDense, "reroute": DepthwiseReroute}
+
+
+def dense_dw_max_channels() -> int:
+    """``dw_backend='dense'``'s cap: wider depthwise layers stay grouped
+    (JAX's ``_DENSE_DW_MAX_CH``, from the same environment variable, read
+    when a model is built)."""
+    return int(os.environ.get("FEDMLP_DW_DENSE_MAXCH", "192"))
 
 # (expand_ratio, channels, repeats, stride, kernel)
 _B0_BLOCKS = (
@@ -81,18 +106,19 @@ class MBConv(nn.Module):
                  dw_backend: str = "conv"):
         super().__init__()
         if dw_backend not in DW_BACKENDS:
-            raise ValueError(f"dw_backend {dw_backend!r} is not ported; have "
-                             f"{DW_BACKENDS}")
+            raise ValueError(f"unknown dw_backend {dw_backend!r}; have {DW_BACKENDS}")
         self.in_ch, self.out_ch = in_ch, out_ch
         self.expand, self.kernel, self.stride = expand, kernel, stride
         self.drop_rate = drop_rate
-        self.dw_backend = dw_backend
         mid = in_ch * expand
         if expand != 1:
             self.expand_conv = nn.Conv2d(in_ch, mid, 1, bias=False)
             self.expand_bn = _bn(mid)
-        if dw_backend == "pallas":
-            self.dw_conv = DepthwisePallas(mid, kernel, stride)
+        module = _DW_MODULES.get(dw_backend)
+        if dw_backend == "dense" and mid > dense_dw_max_channels():
+            module = None
+        if module is not None:
+            self.dw_conv = module(mid, kernel, stride)
         else:
             self.dw_conv = nn.Conv2d(mid, mid, kernel, stride, groups=mid,
                                      bias=False)
@@ -103,12 +129,19 @@ class MBConv(nn.Module):
         self.project_conv = nn.Conv2d(mid, out_ch, 1, bias=False)
         self.project_bn = _bn(out_ch)
 
-    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+    @property
+    def drops(self) -> bool:
+        """Whether the block takes a drop-connect draw in training."""
+        return self.stride == 1 and self.in_ch == self.out_ch and self.drop_rate > 0
+
+    def forward(self, x: torch.Tensor, u=None) -> torch.Tensor:
+        """``u``: the drop-connect uniform [B, 1, 1, 1] (``drops`` blocks in
+        stochastic training), else None."""
         h = x
         if self.expand != 1:
             h = F.silu(self.expand_bn(self.expand_conv(h)))
         k, s = self.kernel, self.stride
-        if self.dw_backend == "pallas":
+        if isinstance(self.dw_conv, DepthwiseModule):
             h = self.dw_conv(h, (same_pads(h.shape[2], k, s),
                                  same_pads(h.shape[3], k, s)))
         else:
@@ -119,8 +152,8 @@ class MBConv(nn.Module):
         h = h * torch.sigmoid(s)
         h = self.project_bn(self.project_conv(h))
         if self.stride == 1 and self.in_ch == self.out_ch:
-            if generator is not None and self.training and self.drop_rate > 0:
-                h = drop_connect(h, self.drop_rate, generator)
+            if u is not None:
+                h = drop_connect(h, self.drop_rate, u)
             h = h + x
         return h
 
@@ -129,7 +162,7 @@ class EfficientNet(nn.Module):
     def __init__(self, width_mult: float, depth_mult: float, num_classes: int,
                  blocks=_B0_BLOCKS, dropout_p: float = 0.2,
                  drop_connect_rate: float = 0.2, dw_backend: str = "conv",
-                 normed_head: bool = False):
+                 normed_head: bool = False, remat: bool = False, remat_stages=()):
         super().__init__()
         self.dropout_p = dropout_p
         stem = _round_filters(32, width_mult)
@@ -138,6 +171,7 @@ class EfficientNet(nn.Module):
         in_ch = stem
         n_blocks = sum(_round_repeats(reps, depth_mult) for _, _, reps, _, _ in blocks)
         self.block_names = []
+        self.remat_names = set()
         gi = 0  # global block index scales the stochastic-depth rate
         for bi, (expand, ch, reps, stride, kernel) in enumerate(blocks):
             out_ch = _round_filters(ch, width_mult)
@@ -148,6 +182,8 @@ class EfficientNet(nn.Module):
                     drop_rate=drop_connect_rate * gi / n_blocks,
                     dw_backend=dw_backend))
                 self.block_names.append(name)
+                if remat or bi in tuple(remat_stages):
+                    self.remat_names.add(name)
                 in_ch = out_ch
                 gi += 1
         head_ch = _round_filters(1280, width_mult)
@@ -160,7 +196,9 @@ class EfficientNet(nn.Module):
         x = self.stem_conv(same_pad(x, 3, 2))
         x = F.silu(self.stem_bn(x))
         for name in self.block_names:
-            x = getattr(self, name)(x, generator if stochastic else None)
+            blk = getattr(self, name)
+            u = drop_connect_draw(x, generator) if stochastic and blk.drops else None
+            x = remat(blk, x, u) if name in self.remat_names else blk(x, u)
         x = F.silu(self.head_bn(self.head_conv(x)))
         feature = x.mean(dim=(2, 3)).float()
         if stochastic:

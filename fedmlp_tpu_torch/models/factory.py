@@ -17,7 +17,7 @@ from torch import nn
 from fedmlp_tpu_torch.models import densenet, efficientnet, resnet, senet, smallcnn, vgg
 from fedmlp_tpu_torch.models.heads import FCNormHead
 from fedmlp_tpu_torch.models.layers import BatchNorm
-from fedmlp_tpu_torch.ops.depthwise import DepthwisePallas
+from fedmlp_tpu_torch.ops.depthwise import DepthwiseModule
 from fedmlp_tpu_torch.weights import leaf_from_jax, to_jax_variables
 
 MODEL_REGISTRY = {
@@ -69,20 +69,29 @@ def is_ported(name: str) -> bool:
 
 
 def build_model(name: str, num_classes: int, dw_backend: str | None = None,
-                normed_head: bool = False, image_size: int = 224, **kw) -> nn.Module:
+                normed_head: bool = False, image_size: int = 224, remat: bool = False,
+                remat_stages=(), **kw) -> nn.Module:
     """The module for ``name`` with a ``num_classes``-way head, weights
     uninitialized (see :func:`init_model`); ``kw`` goes to the constructor.
     ``normed_head`` puts the cosine head (``FCNormHead``) in place of the
     linear one. ``dw_backend`` selects the depthwise-conv implementation of
     the EfficientNet family (see ``MBConv``); ``image_size`` sets the width
-    of VGG's ``fc1``, which flax infers from the input at init. Neither
-    reaches another architecture."""
+    of VGG's ``fc1``, which flax infers from the input at init. ``remat``
+    rematerializes the blocks of the EfficientNet, ResNet and SE-ResNet
+    families, ``remat_stages`` (stage indices) EfficientNet's only. Each
+    reaches only those architectures, and is dropped for the others, as in
+    ``fedmlp_tpu/models/factory.py``."""
     key = _canon(name)
     if key not in MODEL_REGISTRY:
         raise ValueError(f"Name of model unknown {name}")
     kw["normed_head"] = normed_head
     if dw_backend and key.startswith("efficient_b"):
         kw["dw_backend"] = dw_backend
+    if remat and (key.startswith("efficient_b") or key.startswith("resnet")
+                  or key in ("senet50", "senet101", "senet152")):
+        kw["remat"] = True
+    if remat_stages and key.startswith("efficient_b"):
+        kw["remat_stages"] = tuple(remat_stages)
     if key.startswith("vgg"):
         kw["image_size"] = image_size
     return MODEL_REGISTRY[key][0](num_classes, **kw)
@@ -105,7 +114,7 @@ def init_model(model: nn.Module, seed: int) -> nn.Module:
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear, DepthwisePallas)):
+        if isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseModule)):
             w = torch.empty(m.weight.shape, dtype=torch.float32)
             _lecun_normal_(w, g)
             m.weight.copy_(w)

@@ -1,10 +1,31 @@
-"""Layers with the JAX package's (flax's) semantics where PyTorch's differ."""
+"""Layers with the JAX package's (flax's) semantics where PyTorch's differ,
+and the block rematerialization of ``nn.remat``."""
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+# per thread: whether train-mode batch norms hold their running statistics
+# (set while a rematerialized block recomputes its forward)
+_RUNNING_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def running_stats_held():
+    """Inside, a train-mode :class:`BatchNorm` normalizes with the batch
+    statistics as always but leaves its running statistics as they are."""
+    before = getattr(_RUNNING_STATS, "held", False)
+    _RUNNING_STATS.held = True
+    try:
+        yield
+    finally:
+        _RUNNING_STATS.held = before
 
 
 class BatchNorm(nn.Module):
@@ -16,7 +37,8 @@ class BatchNorm(nn.Module):
     The batch statistics come from PyTorch's fused batch-norm kernel, run
     with scratch running buffers at momentum 1 so that they receive exactly
     the batch mean and unbiased variance; the biased variance is that times
-    (n − 1)/n. No ``num_batches_tracked`` buffer, as flax keeps none."""
+    (n − 1)/n. No ``num_batches_tracked`` buffer, as flax keeps none. Under
+    :func:`running_stats_held` the running statistics are not updated."""
 
     def __init__(self, num_features: int, momentum: float, eps: float):
         super().__init__()
@@ -35,6 +57,8 @@ class BatchNorm(nn.Module):
         batch_var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias,
                          True, 1.0, self.eps)
+        if getattr(_RUNNING_STATS, "held", False):
+            return y
         n = x.numel() // x.shape[1]
         m = self.momentum
         with torch.no_grad():
@@ -69,8 +93,42 @@ def dropout(x: torch.Tensor, p: float, generator: torch.Generator) -> torch.Tens
                                                        device=x.device))
 
 
-def drop_connect(h: torch.Tensor, rate: float, generator: torch.Generator):
-    """Per-sample stochastic depth (efficientnet-pytorch ``drop_connect``)."""
+def drop_connect_draw(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """The uniform [B, 1, 1, 1] of :func:`drop_connect` for a batch ``x``."""
+    return torch.rand((x.shape[0], 1, 1, 1), generator=generator, device=x.device)
+
+
+def drop_connect(h: torch.Tensor, rate: float, u: torch.Tensor) -> torch.Tensor:
+    """Per-sample stochastic depth (efficientnet-pytorch ``drop_connect``)
+    with the draw ``u`` of :func:`drop_connect_draw`."""
     keep = 1.0 - rate
-    u = torch.rand((h.shape[0], 1, 1, 1), generator=generator, device=h.device)
     return h / keep * torch.floor(keep + u).to(h.dtype)
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), running_stats_held()
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)``, rematerialized as flax's ``nn.remat``: in training
+    with gradients on, only the block's inputs are kept for the backward,
+    which recomputes the forward
+    (``torch.utils.checkpoint.checkpoint``, non-reentrant); otherwise a
+    plain call.
+
+    The recompute reads the parameter tensors that the forward read (the
+    module's own, or those a ``torch.func.functional_call`` put in place),
+    runs under the forward's autocast, and holds batch norm's running
+    statistics (:func:`running_stats_held`), which the forward updated once,
+    as flax drops the recompute's mutation. The module must draw nothing
+    from a generator: its random draws come in through ``args``, so the
+    recompute repeats them."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(*args)
+    params = dict(module.named_parameters())
+
+    def run(*a):
+        return torch.func.functional_call(module, params, a)
+
+    return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=_remat_contexts)

@@ -10,6 +10,8 @@ flax: momentum 0.9 (0.1 here), eps 1e-5, biased variance. A block gets a
 projection shortcut where its output shape differs from its input's. The
 stem's 3x3/2 max-pool pads with −inf, as flax's does. The feature is the
 pooled last activation: 512 wide for ResNet-18/34, 2048 for the others.
+``remat`` rematerializes every block in the backward (``layers.remat``), as
+JAX's ``nn.remat(block_cls)``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fedmlp_tpu_torch.models.heads import make_head
-from fedmlp_tpu_torch.models.layers import BatchNorm
+from fedmlp_tpu_torch.models.layers import BatchNorm, remat as remat_block
 
 
 def _bn(ch: int) -> BatchNorm:
@@ -94,8 +96,9 @@ class Bottleneck(_Block):
 
 class ResNet(nn.Module):
     def __init__(self, stage_sizes, block_cls, num_classes: int,
-                 normed_head: bool = False, se_ratio: float = 0.0):
+                 normed_head: bool = False, se_ratio: float = 0.0, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.stem_conv = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
         self.stem_bn = _bn(64)
         self.block_names = []
@@ -114,7 +117,8 @@ class ResNet(nn.Module):
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, 1)  # pads with −inf
         for name in self.block_names:
-            x = getattr(self, name)(x)
+            blk = getattr(self, name)
+            x = remat_block(blk, x) if self.remat else blk(x)
         feature = x.mean(dim=(2, 3)).float()
         return feature, self.head(feature)
 

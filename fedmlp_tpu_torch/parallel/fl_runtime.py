@@ -277,6 +277,30 @@ def client_vars(stacked: dict, k: int) -> dict:
     return {n: v[k] for n, v in stacked.items()}
 
 
+class _LossCall(torch.nn.Module):
+    """``loss_fn(model, *args)`` as a module, so that
+    ``torch.func.functional_call`` runs it on one client's tensors."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self.loss_fn = loss_fn
+
+    def forward(self, *args, **kw):
+        return self.loss_fn(self.model, *args, **kw)
+
+
+def streamed_params(model, dtype: torch.dtype) -> dict:
+    """{'model.' + name: the float32 parameter rounded to ``dtype`` and
+    carried as float32} for ``functional_call`` on a ``_LossCall``: the
+    forward reads the rounded values (a convolution under autocast the same
+    bits as a ``dtype`` weight; batch norm keeps its float32 arithmetic, as
+    flax's with a bfloat16 scale), and the gradient flows back through both
+    casts."""
+    return {"model." + n: p.to(dtype).to(p.dtype) for n, p in model.named_parameters()
+            if p.dtype == torch.float32}
+
+
 # ----------------------------------------------------------------------
 # Local round
 # ----------------------------------------------------------------------
@@ -288,7 +312,8 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                      teacher_scope: str = "all", post_step=None,
                      augment_backend: str = "auto",
                      compute_dtype: str = "float32", global_model=None,
-                     teacher_model=None, hoist_augment: bool = False):
+                     teacher_model=None, hoist_augment: bool = False,
+                     weight_stream_dtype: torch.dtype | None = None):
     """A function running one local round for every client in turn.
 
     ``loss_fn(model, views, sample, svalid, ctx, generator, scalars) ->
@@ -342,6 +367,13 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     expanded views); what comes out is new memory, one slice a client.
     ``global_model`` is a second module of the same architecture for the
     frozen-global forwards (built when ``needs_global``).
+
+    ``weight_stream_dtype`` (bfloat16; the JAX package's weight streaming):
+    each step's loss runs the model on every float32 parameter rounded to
+    that type and carried as float32 (``streamed_params``), so the gradient
+    reaches the float32 master through the two casts, rounded to the type
+    as in JAX; buffers are not cast, and the batch-norm updates land in the
+    module's own.
     """
     if teacher_scope not in ("all", "params"):
         raise ValueError(f"unknown teacher_scope {teacher_scope!r}")
@@ -349,6 +381,13 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     augment_views = _view_maker(view_mode, augment_backend, mean, std)
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
     n_views = 1 if view_mode == "single" else 2
+    call = _LossCall(model, loss_fn)
+
+    def step_loss(*args, **kw):
+        if weight_stream_dtype is None:
+            return loss_fn(model, *args, **kw)
+        return torch.func.functional_call(
+            call, streamed_params(model, weight_stream_dtype), args, kw)
 
     def ema_pairs():
         """(teacher tensors, model tensors) that the EMA averages."""
@@ -423,8 +462,8 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                             _add_global_logits(global_model, views)
                         if has_teacher:
                             _, views[t_key] = teacher_model(views[t_view])
-                    res = loss_fn(model, views, sample, valid_d[s, k], ctx,
-                                  generator, scalars, **kw)
+                    res = step_loss(views, sample, valid_d[s, k], ctx, generator,
+                                    scalars, **kw)
                 loss, aux = res if isinstance(res, tuple) else (res, {})
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
@@ -462,19 +501,6 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
 # clients: one view call a view over the K·B step images, one frozen-global
 # forward a view at batch K·B.
 # ----------------------------------------------------------------------
-
-class _LossCall(torch.nn.Module):
-    """``loss_fn(model, *args)`` as a module, so that
-    ``torch.func.functional_call`` runs it on one client's tensors."""
-
-    def __init__(self, model, loss_fn):
-        super().__init__()
-        self.model = model
-        self.loss_fn = loss_fn
-
-    def forward(self, *args):
-        return self.loss_fn(self.model, *args)
-
 
 def _precat(x1, x2):
     """'x12' [K, 2B, ...]: every client's two views [K, B, ...] concatenated

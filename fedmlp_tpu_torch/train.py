@@ -68,9 +68,13 @@ def check_ported(cfg: Config) -> None:
     combination that the port refuses. 'auto' and empty values resolve to
     what the port does: the per-client loop engine, separate forwards per
     view, views made in the step, device-resident data, grouped-conv
-    depthwise. ``scan_unroll``, ``client_unroll``, ``small_pack`` and, where
-    no lockstep engine runs the one-forward loss, ``view_precat`` only shape
-    the JAX package's XLA program and are the identity here."""
+    depthwise. Every ``dw_backend`` of the JAX package, ``remat``,
+    ``remat_stages`` and ``weight_stream`` run as there; left are
+    ``param_dtype`` (float32 only; the JAX package reads it nowhere), host
+    streaming and the mesh. ``scan_unroll``, ``client_unroll``,
+    ``small_pack`` and, where no lockstep engine runs the one-forward loss,
+    ``view_precat`` only shape the JAX package's XLA program and are the
+    identity here."""
     bad = []
 
     def need(ok: bool, field_name: str, value, have: str) -> None:
@@ -86,9 +90,6 @@ def check_ported(cfg: Config) -> None:
     for name in ("client_stacking", "batched_global", "view_precat"):
         need(getattr(cfg, name) in ENGINE_MODES, name, getattr(cfg, name),
              f"have {ENGINE_MODES}")
-    need(not cfg.weight_stream, "weight_stream", cfg.weight_stream, "have 0")
-    need(not cfg.remat, "remat", cfg.remat, "have 0")
-    need(not cfg.remat_stages, "remat_stages", cfg.remat_stages, "have ''")
     need(cfg.param_dtype == "float32", "param_dtype", cfg.param_dtype,
          "parameters are float32")
     need(cfg.compute_dtype in ("float32", "bfloat16"), "compute_dtype",
@@ -255,6 +256,10 @@ class Trainer:
                             for n, v in self.model.state_dict().items()}
 
         # ---- algorithm and engine ----
+        # the per-client loop's steps read each parameter rounded to bf16
+        # (JAX's weight streaming); off in float32, as there
+        self.weight_stream_dtype = (torch.bfloat16 if cfg.weight_stream
+                                    and cfg.compute_dtype == "bfloat16" else None)
         self.algo = algo_registry.get_algorithm(cfg.algorithm)
         self.global_model = (self._frozen_twin()
                              if self.algo.NEEDS_GLOBAL or cfg.fedmlp.stage2_distill
@@ -270,10 +275,18 @@ class Trainer:
             log.warning("engine: hoist_augment=%d does not reach the lockstep engine, "
                         "which makes each step's views in the step (as the JAX "
                         "package's)", cfg.hoist_augment)
-        if self.engine == "stacked" and cfg.dw_backend == "pallas":
-            log.warning("engine: dw_backend='pallas' does not reach the stacked "
-                        "forward, which runs grouped convolutions (as the JAX "
-                        "package's)")
+        # knobs that the JAX package never hands to these engines
+        if self.engine == "stacked" and cfg.dw_backend not in ("", "conv"):
+            log.warning("engine: dw_backend=%r does not reach the stacked forward, "
+                        "which runs grouped convolutions (as the JAX package's)",
+                        cfg.dw_backend)
+        if self.engine == "stacked" and (cfg.remat or cfg.remat_stages):
+            log.warning("engine: remat=%d remat_stages=%r do not reach the stacked "
+                        "forward, which rematerializes nothing (as the JAX "
+                        "package's)", cfg.remat, cfg.remat_stages)
+        if self.engine != "mapped" and cfg.weight_stream:
+            log.warning("engine: weight_stream=%d does not reach the %s engine's "
+                        "step (as in the JAX package)", cfg.weight_stream, self.engine)
         # 'auto' is off: the JAX package turns it on only on a TPU
         # (fedmlp_tpu/train.py:200-211)
         loss_fn = self.algo.loss_fn
@@ -315,14 +328,20 @@ class Trainer:
             return rt.make_lockstep_local_round(self.model, loss_fn,
                                                 view_precat=view_precat, **kw)
         return rt.make_local_round(self.model, loss_fn,
-                                   hoist_augment=bool(cfg.hoist_augment), **kw)
+                                   hoist_augment=bool(cfg.hoist_augment),
+                                   weight_stream_dtype=self.weight_stream_dtype, **kw)
 
     def _build_model(self):
         """An uninitialized module of ``cfg.model``: the one place the
-        Trainer builds the working, frozen-global and teacher modules."""
+        Trainer builds the working, frozen-global and teacher modules.
+        ``remat_stages`` is parsed as the JAX ``Trainer`` does: a comma list
+        of integers (a non-integer raises)."""
         cfg = self.cfg
+        stages = (tuple(int(s) for s in cfg.remat_stages.split(",") if s.strip())
+                  if cfg.remat_stages else ())
         return build_model(cfg.model, cfg.n_classes, dw_backend=cfg.dw_backend or None,
-                           image_size=cfg.data.image_size)
+                           image_size=cfg.data.image_size, remat=bool(cfg.remat),
+                           remat_stages=stages)
 
     @staticmethod
     def _resolve_pre_augment(cfg: Config) -> int:

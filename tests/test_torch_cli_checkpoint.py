@@ -13,7 +13,8 @@ import torch
 
 from fedmlp_tpu import cli as JCli
 from fedmlp_tpu_torch import cli as TCli
-from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
+from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig, MeshConfig
+from fedmlp_tpu_torch.ops.depthwise import DepthwiseDense, DepthwiseReroute, DepthwiseTaps
 from fedmlp_tpu_torch.train import Trainer, UnportedConfigError
 from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -94,10 +95,8 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--exp", "FedMLP", "--model", "Resnet18", "--remat", "1"], "remat=1 is not ported"),
     (["--exp", "FedAVG", "--model", "Resnet18", "--client_stacking", "on"],
      "client_stacking='on' is refused: model 'Resnet18' has no stacked forward"),
-    (["--exp", "FedAVG", "--dw_backend", "taps"], "dw_backend='taps' is not ported"),
     (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1"],
      "data.host_stream=True is not ported"),
     (["--exp", "FedAVG+FixMatch", "--batched_global", "on"],
@@ -126,26 +125,87 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("field,kw", [
-    ("dw_backend", dict(dw_backend="taps")),
-    ("dw_backend", dict(dw_backend="dense")),
-    ("dw_backend", dict(dw_backend="reroute")),
     ("client_stacking", dict(client_stacking="on", model="resnet18")),
-    ("weight_stream", dict(weight_stream=1)),
     ("data.host_stream", dict(data=DataConfig(name="synthetic", host_stream=True))),
-    ("remat", dict(remat=1)),
     ("pre_augment", dict(pre_augment=16, client_stacking="on")),
     ("view_concat", dict(algorithm="fedmlp", view_concat="on", client_stacking="on")),
     ("param_dtype", dict(param_dtype="bfloat16")),
     ("view_precat", dict(view_precat="sometimes")),
     ("model", dict(model="resnet9")),
     ("batched_global", dict(batched_global="on")),
-    ("remat_stages", dict(remat_stages="2,3")),
+    ("data.stream_window", dict(data=DataConfig(name="synthetic", stream_window=4))),
+    ("mesh", dict(mesh=MeshConfig(data_axis=2))),
 ])
 def test_unported_config_values_raise_naming_the_field(field, kw):
     """No knob is accepted and ignored: a ``Config`` value the port has no
     implementation for raises a typed error at ``Trainer`` construction."""
     with pytest.raises(UnportedConfigError, match=rf"(^|; ){field}="):
         Trainer(_cfg(**kw), device="cpu")
+
+
+def _b0_cfg(**kw):
+    return _cfg(model="efficient_b0", batch_size=2, n_clients=2,
+                data=DataConfig(name="synthetic", n_classes=3, image_size=32,
+                                synthetic_train_size=8, synthetic_test_size=4), **kw)
+
+
+_DW = {"taps": DepthwiseTaps, "dense": DepthwiseDense, "reroute": DepthwiseReroute}
+_STAGES_01 = {"block0_0", "block1_0", "block1_1"}
+
+
+@pytest.mark.parametrize("field,kw", [
+    ("dw_backend", dict(dw_backend="taps")),
+    ("dw_backend", dict(dw_backend="dense")),
+    ("dw_backend", dict(dw_backend="reroute")),
+    ("weight_stream", dict(weight_stream=1, compute_dtype="bfloat16")),
+    ("remat", dict(remat=1)),
+    ("remat_stages", dict(remat_stages="0,1")),
+])
+def test_ported_knobs_reach_the_model_or_the_round(field, kw):
+    """Each knob that the port refused until the model-side slice now
+    builds a ``Trainer`` (the per-client loop on EfficientNet-B0) and lands
+    where the JAX package puts it: the depthwise modules, the per-block
+    rematerialization of the working and frozen twins, or the round's
+    weight type."""
+    t = Trainer(_b0_cfg(**kw), device="cpu")
+    assert t.engine == "mapped"
+    twin = t._frozen_twin()
+    if field == "dw_backend":
+        for m in (t.model, twin):
+            assert isinstance(m.block0_0.dw_conv, _DW[kw["dw_backend"]])
+            # 'dense' stops at 192 depthwise channels: block2_1 has 240
+            assert isinstance(m.block2_1.dw_conv, torch.nn.Conv2d) == (
+                kw["dw_backend"] == "dense")
+    elif field == "weight_stream":
+        assert t.weight_stream_dtype == torch.bfloat16
+        assert Trainer(_b0_cfg(weight_stream=1), device="cpu").weight_stream_dtype is None
+    else:
+        want = set(t.model.block_names) if field == "remat" else _STAGES_01
+        assert t.model.remat_names == want and twin.remat_names == want
+        assert t.weight_stream_dtype is None
+
+
+def test_remat_stages_parse_as_the_jax_trainer():
+    """A comma list of stage indices, blanks skipped; a non-integer raises
+    as the JAX ``Trainer``'s ``int()`` does."""
+    assert Trainer(_b0_cfg(remat_stages="1, ,0"), device="cpu").model.remat_names == \
+        _STAGES_01
+    with pytest.raises(ValueError, match="invalid literal for int"):
+        Trainer(_b0_cfg(remat_stages="0,early"), device="cpu")
+
+
+@pytest.mark.parametrize("extra,reached", [
+    (["--model", "Resnet18", "--remat", "1"], lambda m: m.remat),
+    (["--model", "efficient_b0", "--dw_backend", "taps"],
+     lambda m: isinstance(m.block3_2.dw_conv, DepthwiseTaps)),
+])
+def test_cli_model_knobs_reach_the_trainer(tmp_path, extra, reached):
+    """``--remat`` and ``--dw_backend`` from the command line to the model
+    that the ``Trainer`` builds (the flags the port used to refuse)."""
+    a = TCli.args_parser(_SMALL + ["--exp", "FedAVG", "--output_dir", str(tmp_path),
+                                   "--n_clients", "2"] + extra)
+    t = Trainer(TCli.config_from_args(a), device="cpu")
+    assert reached(t.model)
 
 
 def test_auto_and_empty_values_resolve_and_dw_backend_reaches_the_model():
