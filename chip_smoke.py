@@ -107,8 +107,18 @@ first failure:
    against 'conv'; remat steps of B0 and ResNet-18 against no remat, and a
    ``weight_stream`` step against the step on bf16-rounded parameters, with
    cuDNN deterministic.
-17. profile, profile_strong, profile_convbn, time_b5b6, time_views,
-   time_knobs (only
+17. slice_stream: the flagship with its training images streamed from a
+   packed shard on disk (``data.host_stream``, ``stream_window=2``: each
+   client's steps in windows of 64 images, the next gathered by the native
+   loader while one trains), a stage-1 round that harvests through the
+   loader, a stage-2 round and the evaluation, beside ``slice``'s rounds,
+   with the ``PhaseTimer`` shares of the loader's waits and the harvest.
+   First the gates: at 2 clients, float32, cuDNN deterministic, streamed
+   against resident bit for bit on the per-client loop and the lockstep
+   engine; the loader's pinned buffers against ``gather_plain``; a traced
+   streamed round whose Chrome trace lists CUDA kernels.
+18. profile, profile_strong, profile_convbn, time_b5b6, time_views,
+   time_knobs, time_stream (only
    when asked for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
    wrappers' device time divides between their launches; the times and
@@ -116,7 +126,9 @@ first failure:
    (this script copied into another commit's checkout times that commit's
    kernels); the rounds of trainers that make their views in the step,
    hoisted, before the round, or concatenated, run in turns; the rounds of
-   slice_knobs' trainers at K=4, each beside a knob-free trainer's.
+   slice_knobs' trainers at K=4, each beside a knob-free trainer's; the
+   flagship's rounds with the table on the card, streamed at once and
+   streamed in windows, run in turns.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero without a card.
@@ -1190,12 +1202,13 @@ def check_launches(path: str, launches: dict, expected: dict) -> None:
 
 def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
                  n_rounds: int, datasets=(None, None),
-                 count_eval: bool = False) -> dict:
+                 count_eval: bool = False, on_trainer=None) -> dict:
     """Drive ``n_rounds`` rounds of the FedMLP ``Trainer`` at ``cfg`` (on
     ``datasets`` (train, test) where given), with the launch counts set to 0
     just before and read just after (after the final evaluation with
     ``count_eval``); check the outputs and that the counts equal what the
-    rounds imply. Returns the launches; each round's seconds go to
+    rounds imply. ``on_trainer(tr)`` sees the trainer before the counted
+    span. Returns the launches; each round's seconds go to
     ``ROUND_SECONDS[path]``."""
     from fedmlp_tpu_torch.models import feature_dim_of
     from fedmlp_tpu_torch.train import Trainer
@@ -1242,6 +1255,8 @@ def run_flagship(path: str, dev, card: str, cfg, stage1_rounds: int,
           f"{stage1_forwards} train forward(s) a stage-1 step")
     if count_eval:  # the test transform, one launch a chunk of 4B images
         expected["normalize_flip_cutout"] = int(math.ceil(len(tr.test_ds) / (4 * B)))
+    if on_trainer is not None:
+        on_trainer(tr)
 
     reset_launch_counts()
     losses = []
@@ -1686,28 +1701,234 @@ def phase_slice_resnet18(dev, card: str) -> dict:
     ``load_packed_dataset``. Two stage-1 rounds (the second harvests), one
     stage-2 round with ``fedmlp.mixup``, then the evaluation, all inside the
     counted span."""
-    import os
     import tempfile
+
+    cfg = flagship_config(K, N, model="Resnet18", mixup=1)
+    with tempfile.TemporaryDirectory() as root:
+        datasets = packed_flagship("slice_resnet18", root, cfg.seed, N)
+        # a stage-2 step mixes its one weak view after the warp: one launch
+        launches = run_flagship("slice_resnet18", dev, card, cfg, 2, 3,
+                                datasets=datasets, count_eval=True)
+    return launches
+
+
+def packed_flagship(path: str, root: str, seed: int, n_train: int) -> tuple:
+    """The synthetic flagship set (``n_train`` training and ``N_TEST`` test
+    images, 224 px, from ``seed``) written with ``save_packed_dataset`` into
+    ``root``'s train/ and test/ and mapped back with ``load_packed_dataset``:
+    (train, test)."""
+    import os
 
     from fedmlp_tpu_torch.data.datasets import (load_packed_dataset,
                                                 make_synthetic_dataset,
                                                 save_packed_dataset)
 
-    cfg = flagship_config(K, N, model="Resnet18", mixup=1)
+    t0 = time.perf_counter()
+    for part, n, sd in (("train", n_train, seed), ("test", N_TEST, seed + 1)):
+        save_packed_dataset(make_synthetic_dataset(n, N_CLASSES, SIZE, seed=sd),
+                            os.path.join(root, part))
+    t1 = time.perf_counter()
+    train_ds = load_packed_dataset(os.path.join(root, "train"))
+    test_ds = load_packed_dataset(os.path.join(root, "test"))
+    print(f"phase {path}: packed shard of {len(train_ds)} + {len(test_ds)} images at "
+          f"{SIZE} px written in {t1 - t0:.2f} s, mapped back in "
+          f"{time.perf_counter() - t1:.3f} s")
+    return train_ds, test_ds
+
+
+# host streaming: the counted path's window (steps of one client on the
+# per-client loop), the gate's clients (of 128 images each) and the pinned
+# buffer gate's submits
+STREAM_WINDOW = 2
+STREAM_GATE_CLIENTS = 2
+PIN_GATE_SUBMITS = 50
+
+
+def streamed(cfg, root: str, window: int):
+    """``cfg`` reading its training images from ``<root>/train/images.npy``
+    through the loader (``data.host_stream``), ``window`` steps at a time."""
+    import dataclasses
+
+    return cfg.replace(data=dataclasses.replace(cfg.data, root=root, host_stream=True,
+                                                stream_window=window))
+
+
+def stream_gates(dev, card: str, root: str) -> None:
+    """The gates of slice_stream, each failure raising. (a) At
+    ``STREAM_GATE_CLIENTS`` clients of 128 images, B0 224 px, float32, cuDNN
+    deterministic, on the per-client loop and on the lockstep engine: one
+    stage-1 round that harvests, resident against streamed with
+    ``STREAM_WINDOW``: client losses, the global state dict, τ and the
+    prototypes equal bit for bit. (b) The loader's pinned buffers:
+    ``PIN_GATE_SUBMITS`` gathers of 64 random rows, alternately through
+    ``submit``/``wait`` and ``gather``, each copied to the card behind a
+    hold of the stream, all against ``gather_plain`` at the end. (c) A
+    streamed stage-2 round of (a)'s loop trainer inside ``trace_round``:
+    the trace lists CUDA kernels, the weak view's among them."""
+    import glob
+    import os
+
+    from fedmlp_tpu_torch.data.native_loader import PackLoader, gather_plain
+    from fedmlp_tpu_torch.train import Trainer
+    from fedmlp_tpu_torch.utils.profiling import trace_round
+
+    n_train = STREAM_GATE_CLIENTS * 128
+    base = flagship_config(STREAM_GATE_CLIENTS, n_train, rounds_stage1=1,
+                           compute_dtype="float32")
+    datasets = packed_flagship("slice_stream", root, base.seed, n_train)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for engine in ("off", "on"):
+            t0 = time.perf_counter()
+            runs = []
+            for cfg in (base, streamed(base, root, STREAM_WINDOW)):
+                tr = Trainer(cfg.replace(batched_global=engine), train_ds=datasets[0],
+                             test_ds=datasets[1], device=dev)
+                losses = tr.run_round(0).client_losses
+                runs.append((tr, losses))
+            (res, l_res), (st, l_st) = runs
+            same = (l_res == l_st
+                    and all(torch.equal(v, st.global_vars[n])
+                            for n, v in res.global_vars.items())
+                    and all(np.array_equal(res.server_state[k], st.server_state[k])
+                            for k in ("tao", "proto")))
+            print(f"phase slice_stream: gate {tr.engine} engine K={STREAM_GATE_CLIENTS} "
+                  f"B0 {SIZE} px float32, cuDNN deterministic, a stage-1 round with its "
+                  f"harvest: streamed (window {STREAM_WINDOW}, peak "
+                  f"{st.stream_peak_rows} rows) against resident, equal bits {same}, "
+                  f"losses {l_st} ({time.perf_counter() - t0:.1f} s) [{card}]")
+            if not same:
+                raise SystemExit(f"slice_stream: the streamed {tr.engine} round is not "
+                                 f"the resident one: {l_st} against {l_res}")
+            if engine == "off":
+                loop = st
+            del runs, res, tr
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    npy = os.path.join(root, "train", "images.npy")
+    mm = np.load(npy, mmap_mode="r")
+    rng = np.random.RandomState(5)
+    t0 = time.perf_counter()
+    gather_s = []
+    with PackLoader(npy, reuse_buffers=True) as ld:
+        got, rows = [], []
+        for i in range(PIN_GATE_SUBMITS):
+            rows.append(rng.choice(n_train, 64, replace=False))
+            if i % 2:
+                t1 = time.perf_counter()
+                host = ld.gather(rows[-1])
+                gather_s.append(time.perf_counter() - t1)
+            else:
+                ld.submit(rows[-1])
+                host = ld.wait()
+            torch.cuda._sleep(HOLD_CYCLES)  # the copy waits; the next call may not
+            got.append(ld.to_device(host, dev))
+        torch.cuda.synchronize()
+        bad = [i for i, (t, r) in enumerate(zip(got, rows))
+               if not np.array_equal(t.cpu().numpy(), gather_plain(mm, r))]
+    print(f"phase slice_stream: gate pinned buffers, {PIN_GATE_SUBMITS} gathers of 64 "
+          f"rows (submit/wait and gather in turns), each copy behind a hold: "
+          f"{PIN_GATE_SUBMITS - len(bad)} equal to gather_plain; a gather of a "
+          f"window's 64 rows ({64 * SIZE * SIZE * 3 / 2**20:.1f} MiB) "
+          f"{1e3 * statistics.median(gather_s):.2f} ms median "
+          f"({time.perf_counter() - t0:.2f} s) [{card}]")
+    if bad:
+        raise SystemExit(f"slice_stream: pinned-buffer copies {bad} differ from the shard")
+
+    out = os.path.join(root, "trace")
+    t0 = time.perf_counter()
+    with trace_round(out):
+        loop.run_round(1)
+    (path,) = glob.glob(os.path.join(out, "trace_*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    warp = sum("fused_warp" in k for k in kernels)
+    print(f"phase slice_stream: a traced streamed stage-2 round (K="
+          f"{STREAM_GATE_CLIENTS}): {len(kernels)} CUDA kernel events, {warp} of the "
+          f"weak view, trace {os.path.getsize(path) / 2**20:.1f} MiB "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    if not warp:
+        raise SystemExit("slice_stream: the trace lists no weak-view kernel")
+
+
+def timed(timer, name: str, fn):
+    """``fn`` with each call inside ``timer``'s phase ``name``."""
+    def call(*args, **kw):
+        with timer.phase(name):
+            return fn(*args, **kw)
+    return call
+
+
+def stream_timers(tr, dev) -> tuple:
+    """Wrap ``tr``'s round, harvest and loader waits in ``PhaseTimer``
+    phases: rounds and harvests on the device's clock (synchronized at each
+    end), the waits on the host's alone, so that no wait drains the queue.
+    Returns (host timer, device timer)."""
+    from fedmlp_tpu_torch.algos import fedmlp
+    from fedmlp_tpu_torch.utils.profiling import PhaseTimer
+
+    host, device = PhaseTimer(), PhaseTimer(dev)
+    wait, harvest, run_round = tr.loader.wait, fedmlp._get_harvest(tr), tr.run_round
+    tr.loader.wait = timed(host, "wait", wait)
+    tr._fedmlp_harvest = timed(device, "harvest", harvest)
+    tr.run_round = timed(device, "round", run_round)
+    return host, device
+
+
+def phase_slice_stream(dev, card: str) -> dict:
+    """FedMLP at the flagship geometry (B0 224 px, K=20, batch 32, bf16) with
+    its training images streamed from a packed shard on disk: after the
+    gates (``stream_gates``), the flagship set written with
+    ``save_packed_dataset``, then ``host_stream`` with ``STREAM_WINDOW``
+    (each client's 4 steps in 2 windows of 64 images): a stage-1 round that
+    harvests through the loader, a stage-2 round (two streamed harvests)
+    and the evaluation, all counted. The images never reach the card as a
+    table; at most two windows are held at once; each round beside
+    ``slice``'s of its kind, and the ``PhaseTimer`` shares."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        for part, n, seed in (("train", N, cfg.seed), ("test", N_TEST, cfg.seed + 1)):
-            save_packed_dataset(make_synthetic_dataset(n, N_CLASSES, SIZE, seed=seed),
-                                os.path.join(root, part))
-        t1 = time.perf_counter()
-        train_ds = load_packed_dataset(os.path.join(root, "train"))
-        test_ds = load_packed_dataset(os.path.join(root, "test"))
-        print(f"phase slice_resnet18: packed shard of {len(train_ds)} + {len(test_ds)} "
-              f"images at {SIZE} px written in {t1 - t0:.2f} s, mapped back in "
-              f"{time.perf_counter() - t1:.3f} s")
-        # a stage-2 step mixes its one weak view after the warp: one launch
-        launches = run_flagship("slice_resnet18", dev, card, cfg, 2, 3,
-                                datasets=(train_ds, test_ds), count_eval=True)
+        stream_gates(dev, card, os.path.join(root, "gate"))
+        cfg = streamed(flagship_config(K, N, rounds_stage1=1), root, STREAM_WINDOW)
+        datasets = packed_flagship("slice_stream", root, cfg.seed, N)
+        held = {}
+
+        def on_trainer(tr):
+            if tr.fd.images is not None or tr.loader is None:
+                raise SystemExit("slice_stream: the training table is on the card")
+            held["tr"], held["timers"] = tr, stream_timers(tr, dev)
+
+        launches = run_flagship("slice_stream", dev, card, cfg, 1, 2, datasets=datasets,
+                                count_eval=True, on_trainer=on_trainer)
+    tr, (host, device) = held["tr"], held["timers"]
+    bound = 2 * STREAM_WINDOW * B
+    print(f"phase slice_stream: at most {tr.stream_peak_rows} image rows held at once "
+          f"(bound 2·W·B = {bound}; the resident table {N} rows, "
+          f"{N * SIZE * SIZE * 3 / 2**30:.2f} GiB) [{card}]")
+    if not 0 < tr.stream_peak_rows <= bound:
+        raise SystemExit(f"slice_stream: {tr.stream_peak_rows} rows held, bound {bound}")
+    rep, wait = device.report(), host.report()["wait"]
+    rounds = rep["round"]["total_s"]
+    harvest = rep["harvest"]["total_s"]
+    print(f"phase slice_stream: PhaseTimer over {rep['round']['calls']} rounds, "
+          f"{rounds:.3f} s: train {rounds - harvest:.3f} s "
+          f"({(rounds - harvest) / rounds:.3f}), harvest {harvest:.3f} s "
+          f"({harvest / rounds:.3f}, {rep['harvest']['calls']} calls), loader wait "
+          f"{wait['total_s']:.3f} s ({wait['total_s'] / rounds:.3f}, {wait['calls']} "
+          f"calls, {1e3 * wait['mean_s']:.2f} ms a call) [{card}]")
+    base, base_peak = ROUND_SECONDS.get("slice"), PEAK_GIB.get("slice")
+    for rnd, kind, other in ((0, "stage 1 + harvest", 1), (1, "stage 2", 2)):
+        t = ROUND_SECONDS["slice_stream"][rnd]
+        beside = (f"slice round {other} {base[other]:.3f} s ({N / base[other]:.1f} img/s, "
+                  f"peak {base_peak[other]:.2f} GiB)" if base else "nothing")
+        print(f"phase slice_stream: round {rnd} ({kind}) {t:.3f} s ({N / t:.1f} img/s, "
+              f"peak {PEAK_GIB['slice_stream'][rnd]:.2f} GiB) beside {beside} [{card}]")
+    print(f"phase slice_stream: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
 
 
@@ -2469,8 +2690,67 @@ _PATH_KERNELS = {
     "slice_views": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad"),
     "slice_preaug": ("fused_warp_normalize", "hshift_rows", "bce_with_logits_masked_sum",
                      "bce_with_logits_masked_grad", "normalize_flip_cutout"),
+    "slice_stream": ("fused_warp_normalize", "normalize_flip_cutout"),
     **{path: ("fused_warp_normalize",) for path, _ in KNOBS},
 }
+
+
+def phase_time_stream(dev, card: str) -> None:
+    """Host streaming, A against B in one call: six flagship trainers over
+    one packed shard, two each of the table on the card, streamed at once
+    (W=0) and streamed in windows of ``STREAM_WINDOW``, their rounds run in
+    turns, in the order A B C C B A (round r of each before round r+1 of
+    any), so that a trainer's place in the turn falls on every variant
+    alike: 2 stage-1 rounds (the second harvests) and a stage-2 round.
+    Seconds, images/s and, when streamed, the seconds the host spent in the
+    loader's gathers and waits (``PhaseTimer``, host clock) of each round,
+    and each round's harvests (``PhaseTimer`` on the device's clock); then
+    each variant's mean. Peak memory is not read: the six trainers share the
+    card."""
+    import tempfile
+
+    from fedmlp_tpu_torch.algos import fedmlp
+    from fedmlp_tpu_torch.train import Trainer
+    from fedmlp_tpu_torch.utils.profiling import PhaseTimer
+
+    with tempfile.TemporaryDirectory() as root:
+        base = flagship_config(K, N)
+        datasets = packed_flagship("time_stream", root, base.seed, N)
+        variants = (("resident", base), ("stream W=0", streamed(base, root, 0)),
+                    (f"stream W={STREAM_WINDOW}", streamed(base, root, STREAM_WINDOW)))
+        runs = []  # (variant, trainer, host timer, device timer), in A B C C B A order
+        for name, cfg in variants + variants[::-1]:
+            tr = Trainer(cfg, train_ds=datasets[0], test_ds=datasets[1], device=dev)
+            host, device = PhaseTimer(), PhaseTimer(dev)
+            if tr.loader is not None:
+                tr.loader.wait = timed(host, "read", tr.loader.wait)
+                tr.loader.gather = timed(host, "read", tr.loader.gather)
+            tr._fedmlp_harvest = timed(device, "harvest", fedmlp._get_harvest(tr))
+            runs.append((name, tr, host, device))
+        secs = {name: [] for name, _ in variants}
+        for rnd in range(3):
+            line = []
+            for name, tr, host, device in runs:
+                read0, harvest0 = host.totals["read"], device.totals["harvest"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tr.run_round(rnd)
+                torch.cuda.synchronize()
+                t = time.perf_counter() - t0
+                secs[name].append(t)
+                line.append(f"{name} {t:.3f} s ({N / t:.1f} img/s, harvest "
+                            f"{device.totals['harvest'] - harvest0:.3f} s, loader "
+                            f"{host.totals['read'] - read0:.3f} s)")
+            print(f"phase time_stream round {rnd}: {'; '.join(line)} [{card}]")
+        for name, t in secs.items():
+            means = [statistics.mean(t[2 * r:2 * r + 2]) for r in range(3)]
+            rel = [m / statistics.mean(secs["resident"][2 * r:2 * r + 2])
+                   for r, m in enumerate(means)]
+            print(f"phase time_stream: {name} mean of 2, rounds 0-2 "
+                  f"{' '.join(f'{m:.3f}' for m in means)} s, "
+                  f"{' '.join(f'{x:.3f}' for x in rel)} of resident [{card}]")
+        del runs
+        torch.cuda.empty_cache()
 
 
 def phase_time_views(dev, card: str) -> None:
@@ -2557,12 +2837,12 @@ def main(argv=None) -> int:
                                         "slice_stacked,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
                                         "slice_resnet18,models_zoo,slice_views,"
-                                        "slice_preaug,slice_knobs",
+                                        "slice_preaug,slice_knobs,slice_stream",
                     help="comma list of build,kernel,slice,slice_lockstep,slice_stacked,"
                          "slice_dw,cli,slice_strong,probe_convbn,slice_fednoro,"
                          "slice_baselines,slice_resnet18,models_zoo,slice_views,"
-                         "slice_preaug,slice_knobs,profile,profile_strong,profile_convbn,"
-                         "time_b5b6,time_views,time_knobs")
+                         "slice_preaug,slice_knobs,slice_stream,profile,profile_strong,"
+                         "profile_convbn,time_b5b6,time_views,time_knobs,time_stream")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
@@ -2611,6 +2891,8 @@ def main(argv=None) -> int:
         by_path["slice_preaug"] = phase_slice_preaug(dev, card)
     if "slice_knobs" in phases:
         by_path.update(phase_slice_knobs(dev, card))
+    if "slice_stream" in phases:
+        by_path["slice_stream"] = phase_slice_stream(dev, card)
     for path, launches in by_path.items():
         for name in _PATH_KERNELS[path]:
             if not launches[name]:
@@ -2631,6 +2913,8 @@ def main(argv=None) -> int:
         phase_time_views(dev, card)
     if "time_knobs" in phases:
         phase_time_knobs(dev, card)
+    if "time_stream" in phases:
+        phase_time_stream(dev, card)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

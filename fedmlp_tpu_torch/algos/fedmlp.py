@@ -320,7 +320,7 @@ def custom_round(trainer, rnd: int):
         if rnd == stage1_rounds - 1:
             # prototypes and τ from each client's TRAINED model (:971-1002)
             feats, probs = _get_harvest(trainer)(svars, fd.images, fd.idx,
-                                                 trainer.generator)
+                                                 trainer.generator, trainer.loader)
             _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
         trainer.global_vars = trainer.aggregate(svars, trainer.dict_len)
         return losses
@@ -328,7 +328,7 @@ def custom_round(trainer, rnd: int):
     # ---------------- stage 2 ----------------
     harvest = _get_harvest(trainer)
     gstack = trainer.broadcast(trainer.global_vars)
-    feats, _ = harvest(gstack, fd.images, fd.idx, trainer.generator)
+    feats, _ = harvest(gstack, fd.images, fd.idx, trainer.generator, trainer.loader)
     proto = torch.as_tensor(trainer.server_state["proto"], device=trainer.device)
     scores = torch.stack([fedmlp_similarity_scores(f, proto) for f in feats])
     order = torch.argsort(scores, dim=1, stable=True)  # stable, on device
@@ -338,7 +338,7 @@ def custom_round(trainer, rnd: int):
         _get_stage2_fn(trainer), _stage2_sample_arrays(trainer),
         trainer.round_scalars(rnd))
     svars = out_state["vars"]
-    feats, probs = harvest(svars, fd.images, fd.idx, trainer.generator)
+    feats, probs = harvest(svars, fd.images, fd.idx, trainer.generator, trainer.loader)
     _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
     trainer.global_vars = trainer.aggregate(svars, trainer.dict_len)
     return losses

@@ -188,7 +188,7 @@ def custom_round(trainer, rnd: int):
     # (reference :480-496; only the in-training write-back is gated by T_pl),
     # and round 0's centroids
     feats, probs = harvest(trainer.broadcast(trainer.global_vars), fd.images, fd.idx,
-                           trainer.generator)
+                           trainer.generator, trainer.loader)
     pseudo = (probs > 0.5).to(torch.float32)
     if rnd == 0:
         f_k0 = torch.stack([masked_binary_prototypes(feats[k], fd.obs_targets[k],

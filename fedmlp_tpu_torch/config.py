@@ -51,8 +51,12 @@ class DataConfig:
     # three-shear warp kernel, ops/warp.py), 'normonly' (normalize only, no
     # warp or flip: deterministic views for parity tests and probes)
     augment_backend: str = "auto"
-    host_stream: bool = False  # JAX-package engine knob: not ported, must be off
-    stream_window: int = 0  # JAX-package engine knob: not ported, must be 0
+    # stream the training images from the packed <root>/train/images.npy
+    # through the native loader instead of holding them on the device
+    host_stream: bool = False
+    # with host_stream: run each round in windows of this many steps, the
+    # next window gathered while one trains (0: the whole round at once)
+    stream_window: int = 0
 
 
 @dataclass(frozen=True)

@@ -36,6 +36,29 @@ def bce_on_probs(probs: torch.Tensor, targets: torch.Tensor, weight=None):
     return loss
 
 
+def masked_class_mean(loss: torch.Tensor, class_mask: torch.Tensor, batch_size=None):
+    """The reference's ``loss[:, cls_list].sum() / (batch * len(cls_list))``
+    as a mask-weighted mean: ``class_mask`` [C] (bool or 0/1) picks the
+    classes, the denominator is ``batch_size`` (default: the leading size)
+    times at least one class. The reference divides by the CONFIGURED batch
+    size even for a ragged last batch (utils/local_training.py:956-957), so
+    pass it for parity."""
+    class_mask = class_mask.to(loss.dtype)
+    b = loss.shape[0] if batch_size is None else batch_size
+    return (loss * class_mask[None, :]).sum() / (b * torch.clamp(class_mask.sum(), min=1.0))
+
+
+def la_kd(probs: torch.Tensor, targets: torch.Tensor, soft_targets: torch.Tensor, w_kd,
+          active_mask: torch.Tensor, negative_mask: torch.Tensor, batch_size=None):
+    """FedNoRo's LA_KD (reference: utils/FedNoRo.py:35-38): (1 − w)·BCE(probs,
+    y) over the annotated classes + w·MSE(probs, soft) over the missing ones,
+    each a ``masked_class_mean``. (``algos/fednoro.py`` writes it inline, as
+    the JAX package's FedNoRo does.)"""
+    bce = masked_class_mean(bce_on_probs(probs, targets), active_mask, batch_size)
+    kl = masked_class_mean((probs - soft_targets) ** 2, negative_mask, batch_size)
+    return w_kd * kl + (1.0 - w_kd) * bce
+
+
 def sigmoid_mse(input_logits: torch.Tensor, target_logits: torch.Tensor):
     """(σ(a) − σ(b))² elementwise (reference: utils/local_training.py:94-107)."""
     return (torch.sigmoid(input_logits) - torch.sigmoid(target_logits)) ** 2
@@ -94,3 +117,11 @@ def sigmoid_rampup_bounded(current: float, begin: float, end: float) -> float:
     current = float(np.clip(current, begin, end))
     phase = 1.0 - (current - begin) / (end - begin)
     return float(np.exp(-5.0 * phase * phase))
+
+
+def pos_weight_from_counts(n_local: float, class_counts) -> np.ndarray:
+    """Inverse class frequency, float32 ``n_local / max(count, 1e-12)``
+    (reference: utils/local_training.py:40, loss_w = N_local / class_count),
+    computed in float64 as the JAX package does."""
+    counts = np.maximum(np.asarray(class_counts, dtype=np.float64), 1e-12)
+    return (n_local / counts).astype(np.float32)

@@ -36,6 +36,7 @@ from fedmlp_tpu_torch.data.masking import (
     observed_targets,
 )
 from fedmlp_tpu_torch.ops import augment as A
+from fedmlp_tpu_torch.parallel.streaming import TableImages, open_round_images
 
 
 _BETAS, _ADAM_EPS, _WEIGHT_DECAY = (0.9, 0.999), 1e-8, 5e-4
@@ -75,9 +76,10 @@ def autocast(device: torch.device, compute_dtype: str):
 
 @dataclasses.dataclass
 class FederatedData:
-    """All static data of a federation, on the device."""
+    """All static data of a federation, on the device (the images None when
+    they stream from disk)."""
 
-    images: torch.Tensor       # u8 [N, H, W, 3]
+    images: torch.Tensor | None  # u8 [N, H, W, 3]
     targets: torch.Tensor      # f32 [N, C] true labels
     obs_targets: torch.Tensor  # f32 [K, M, C] observed (masked) labels
     idx: torch.Tensor          # i64 [K, M] global sample index table
@@ -101,10 +103,12 @@ class FederatedData:
 
 
 def build_federated_data(images, targets, dict_users, hidden, active_class_lists,
-                         device="cuda") -> FederatedData:
+                         device="cuda", device_images: bool = True) -> FederatedData:
     """Densify the reference's Python-side bookkeeping into tensors
     (reference: DatasetSplit + get_num_of_each_class + loss_w,
-    utils/local_training.py:38-43, label masking :1347-1356)."""
+    utils/local_training.py:38-43, label masking :1347-1356).
+    ``device_images=False`` keeps the images off the device (host
+    streaming): ``images`` is None and only the tables go to ``device``."""
     K = len(active_class_lists)
     C = targets.shape[1]
     idx, valid = build_client_index_table(dict_users, K)
@@ -126,7 +130,7 @@ def build_federated_data(images, targets, dict_users, hidden, active_class_lists
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     return FederatedData(
-        images=dev(images), targets=dev(targets, torch.float32),
+        images=dev(images) if device_images else None, targets=dev(targets, torch.float32),
         obs_targets=dev(obs), idx=dev(idx, torch.int64), valid=dev(valid),
         active=dev(active), loss_w=dev(loss_w), class_num=dev(class_num),
         n_local=dev(n_local),
@@ -164,7 +168,7 @@ def gather_round_images(images: torch.Tensor, idx: torch.Tensor, pos) -> torch.T
     images u8 [S, K, B, H, W, 3], padding positions included (the JAX
     package's ``gather_round_data``)."""
     pos = torch.as_tensor(pos, dtype=torch.int64, device=idx.device)
-    return images[idx[torch.arange(idx.shape[0], device=idx.device)[None, :, None], pos]]
+    return TableImages(images, idx, pos).whole()
 
 
 def pre_augment_views(imgs: torch.Tensor, generator: torch.Generator, *, view_mode: str,
@@ -212,8 +216,9 @@ HOIST_MAX_VIEWS = 4096
 def _step_setup(data, plan, compute_dtype, needs_global, global_model, global_vars):
     """What every engine's round starts with: (device, the plan's positions
     and valid mask on it, client row indices [K, 1], the autocast context),
-    and the frozen global model loaded and in eval mode when needed."""
-    device = data["images"].device
+    and the frozen global model loaded and in eval mode when needed. The
+    device is the tables' (``data['idx']``): the images may stay on disk."""
+    device = data["idx"].device
     pos_d = torch.as_tensor(plan["pos"], dtype=torch.int64, device=device)
     if needs_global:
         global_model.load_state_dict(global_vars)
@@ -223,17 +228,16 @@ def _step_setup(data, plan, compute_dtype, needs_global, global_model, global_va
             autocast(device, compute_dtype))
 
 
-def _round_views(plan, hoist_augment: bool, n_views: int, data, pos_d, generator,
+def _round_views(plan, hoist_augment: bool, n_views: int, src, pos_d, generator,
                  **kw):
     """The views a round brings (``plan['views']``) or, with
     ``hoist_augment`` and at most ``HOIST_MAX_VIEWS`` view images, all of
-    them made now in one ``pre_augment_views`` call; else None (the steps
-    make their own)."""
+    them made now from the round's images ``src.whole()`` in one
+    ``pre_augment_views`` call; else None (the steps make their own)."""
     made = plan.get("views")
     S, K, B = pos_d.shape
     if made is None and hoist_augment and S * K * B * n_views <= HOIST_MAX_VIEWS:
-        made = pre_augment_views(gather_round_images(data["images"], data["idx"], pos_d),
-                                 generator, chunk=S * K * B, **kw)
+        made = pre_augment_views(src.whole(), generator, chunk=S * K * B, **kw)
     return made
 
 
@@ -418,7 +422,8 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         iter0 = int(plan.get("iter0", 0))
         device, pos_d, valid_d, _, cast = _step_setup(
             data, plan, compute_dtype, needs_global, global_model, global_vars)
-        made = _round_views(plan, hoist_augment, n_views, data, pos_d, generator,
+        src = open_round_images(data["images"], data["idx"], pos_d, "client")
+        made = _round_views(plan, hoist_augment, n_views, src, pos_d, generator,
                             view_mode=view_mode, augment_backend=augment_backend,
                             mean=mean, std=std)
         stacked = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=device)
@@ -453,7 +458,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                 sample = {n: t[k, p] for n, t in plan["sample"].items()}
                 sample["_pos"] = p
                 if made is None:
-                    views = augment_views(data["images"][data["idx"][k, p]], generator)
+                    views = augment_views(src.client_step(k, s), generator)
                 else:
                     views = {n: v[s, k] for n, v in made.items()}
                 with cast:
@@ -489,6 +494,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
             if cstate is not None:
                 for n, v in kw["cstate"].items():
                     out["cstate"][n][k].copy_(v)
+        src.finish()
         return out, mean_losses, _stack_aux(aux_sums)
 
     return round_fn
@@ -545,8 +551,9 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
                              "carries no teacher or per-client state")
         pos_valid = plan["pos_valid"]
         S, K, _ = pos_valid.shape
-        device, pos_d, valid_d, rows, cast = _step_setup(
+        device, pos_d, valid_d, _, cast = _step_setup(
             data, plan, compute_dtype, needs_global, global_model, global_vars)
+        src = open_round_images(data["images"], data["idx"], pos_d, "step")
         # each client's own tensors, never views of global_vars
         clients = [{"model." + n: v.detach().clone() for n, v in global_vars.items()}
                    for _ in range(K)]
@@ -561,7 +568,7 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
             if not len(stepping):
                 continue
             p = pos_d[s]
-            views = augment_views(data["images"][data["idx"][rows, p]], generator)
+            views = augment_views(src.step(s), generator)
             if needs_global:
                 with cast, torch.no_grad():
                     _add_global_logits(global_model, views)
@@ -588,6 +595,7 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
                 loss_sum[k] += loss.detach().float()
                 cnt[k] += 1
             adam_update(*update, lr)
+        src.finish()
         out = {n: torch.stack([c["model." + n].detach() for c in clients])
                for n in global_vars}
         mean_losses = torch.stack([ls / max(c, 1) for ls, c in zip(loss_sum, cnt)])
@@ -633,7 +641,8 @@ def make_stacked_local_round(model, stacked_loss_fn, *, lr: float, batch_size: i
         S, K, _ = pos_valid.shape
         device, pos_d, valid_d, rows, cast = _step_setup(
             data, plan, compute_dtype, needs_global, global_model, global_vars)
-        made = _round_views(plan, hoist_augment, n_views, data, pos_d, generator,
+        src = open_round_images(data["images"], data["idx"], pos_d, "step")
+        made = _round_views(plan, hoist_augment, n_views, src, pos_d, generator,
                             view_mode=view_mode, augment_backend=augment_backend,
                             mean=mean, std=std)
         svars = {n: v.unsqueeze(0).expand((K,) + v.shape).clone(
@@ -656,7 +665,7 @@ def make_stacked_local_round(model, stacked_loss_fn, *, lr: float, batch_size: i
                 continue
             p = pos_d[s]
             if made is None:
-                views = augment_views(data["images"][data["idx"][rows, p]], generator)
+                views = augment_views(src.step(s), generator)
             else:
                 views = {n: v[s] for n, v in made.items()}
             sample = {n: t[rows, p] for n, t in plan["sample"].items()}
@@ -682,6 +691,7 @@ def make_stacked_local_round(model, stacked_loss_fn, *, lr: float, batch_size: i
                     svars[n].copy_(torch.where(held, new, svars[n]))
                 loss_sum += torch.where(keep, loss_k.detach().float(), 0.0)
                 cnt += keep
+        src.finish()
         mean_losses = loss_sum / torch.clamp(cnt, min=1.0)
         return {"vars": {n: svars[n].detach() for n in global_vars}}, mean_losses, {}
 
@@ -704,27 +714,42 @@ def _stack_aux(aux_sums: list) -> dict:
 
 def make_harvest_fn(model, mean, std, batch_size: int, augment_backend: str = "auto",
                     compute_dtype: str = "float32"):
-    """``harvest(stacked_vars, images, idx [K, M], generator)`` →
-    (features [K, M, D], probs [K, M, C]): each client's own weights, in
+    """``harvest(stacked_vars, images, idx [K, M], generator, loader=None)``
+    → (features [K, M, D], probs [K, M, C]): each client's own weights, in
     eval mode, over its table in chunks of ``batch_size`` (the last chunk
     edge-padded), on the weak view as the reference's image_aug_1
-    (utils/local_training.py:982)."""
+    (utils/local_training.py:982). With ``images`` None the chunks stream
+    from ``loader`` (a ``PackLoader`` over the packed shard), chunk j+1
+    gathered on the loader's thread while chunk j runs, as the JAX
+    package's harvest (``fl_runtime.py:1501-1546``; its chunk is all K
+    clients' j-th, here one client's, in the order they run)."""
     weak = A.pick_weak_backend(augment_backend)
 
     @torch.no_grad()
-    def harvest(stacked_vars, images, idx, generator):
+    def harvest(stacked_vars, images, idx, generator, loader=None):
         K, M = idx.shape
         nb = math.ceil(M / batch_size)
         pad = nb * batch_size - M
         idx_p = torch.cat([idx, idx[:, -1:].expand(K, pad)], 1) if pad else idx
-        cast = autocast(images.device, compute_dtype)
+        cast = autocast(idx.device, compute_dtype)
+        if images is None:
+            if loader is None:
+                raise ValueError("a harvest of streamed images needs the loader")
+            chunks = idx_p.cpu().numpy().reshape(K * nb, batch_size)
+            loader.submit(chunks[0])
         feats, probs = [], []
         for k in range(K):
             model.load_state_dict(client_vars(stacked_vars, k))
             model.eval()
             fk, pk = [], []
             for j in range(nb):
-                imgs = images[idx_p[k, j * batch_size:(j + 1) * batch_size]]
+                if images is None:
+                    host = loader.wait()
+                    if k * nb + j + 1 < K * nb:
+                        loader.submit(chunks[k * nb + j + 1])
+                    imgs = loader.to_device(host, idx.device)
+                else:
+                    imgs = images[idx_p[k, j * batch_size:(j + 1) * batch_size]]
                 x = weak(imgs, generator, mean, std)
                 with cast:
                     f, logits = model(x)

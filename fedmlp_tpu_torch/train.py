@@ -8,6 +8,11 @@ loop, which trains every client in turn on one working module; the lockstep
 order (``batched_global='on'``), steps outside and clients inside; and the
 channel-stacked clients (``client_stacking='on'``, ``models/stacked.py``).
 
+The training images live on the device, or with ``data.host_stream`` stay in
+the packed ``images.npy`` on disk and reach each round through a
+``PackLoader`` (``data/native_loader.py``): the whole round at once, or with
+``data.stream_window=W`` in windows of W steps (``parallel/streaming.py``).
+
 Precision: parameters and Adam state are float32. With
 ``compute_dtype='bfloat16'`` the forwards run under bf16 autocast on the
 card; on the CPU everything is float32. On the card TF32 is switched OFF for
@@ -40,6 +45,7 @@ from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
 from fedmlp_tpu_torch.models.factory import is_ported as model_is_ported
 from fedmlp_tpu_torch.ops.augment import AUGMENT_BACKENDS
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
+from fedmlp_tpu_torch.parallel.streaming import RoundStream
 
 log = logging.getLogger("fedmlp_tpu_torch")
 
@@ -69,9 +75,9 @@ def check_ported(cfg: Config) -> None:
     what the port does: the per-client loop engine, separate forwards per
     view, views made in the step, device-resident data, grouped-conv
     depthwise. Every ``dw_backend`` of the JAX package, ``remat``,
-    ``remat_stages`` and ``weight_stream`` run as there; left are
-    ``param_dtype`` (float32 only; the JAX package reads it nowhere), host
-    streaming and the mesh. ``scan_unroll``, ``client_unroll``,
+    ``remat_stages``, ``weight_stream``, ``data.host_stream`` and
+    ``data.stream_window`` run as there; left are ``param_dtype`` (float32
+    only; the JAX package reads it nowhere) and the mesh. ``scan_unroll``, ``client_unroll``,
     ``small_pack`` and, where no lockstep engine runs the one-forward loss,
     ``view_precat`` only shape the JAX package's XLA program and are the
     identity here."""
@@ -94,10 +100,24 @@ def check_ported(cfg: Config) -> None:
          "parameters are float32")
     need(cfg.compute_dtype in ("float32", "bfloat16"), "compute_dtype",
          cfg.compute_dtype, "have float32 and bfloat16")
-    need(not cfg.data.host_stream, "data.host_stream", cfg.data.host_stream,
-         "data is device-resident")
-    need(not cfg.data.stream_window, "data.stream_window", cfg.data.stream_window,
-         "data is device-resident")
+    need(cfg.data.stream_window >= 0, "data.stream_window", cfg.data.stream_window,
+         "a window is a count of steps, 0 for none")
+    window = cfg.data.stream_window
+    if window > 0 and not cfg.data.host_stream:
+        # the JAX Config ignores the window there; no knob is accepted to be ignored
+        bad.append(f"data.stream_window={window} with data.host_stream=False is "
+                   "refused: windows stream the round from the packed shard")
+    if window > 0 and cfg.pre_augment > 0:
+        # as the JAX package (fedmlp_tpu/train.py:384-387)
+        bad.append(f"data.stream_window={window} with pre_augment={cfg.pre_augment} "
+                   "is refused: views made before the round need the whole round, "
+                   "a window holds W steps")
+    if window > 0 and cfg.hoist_augment:
+        # JAX hoists each window with one key, so its windowed hoisted round is
+        # not its unwindowed one (ROADMAP.md §C)
+        bad.append(f"data.stream_window={window} with hoist_augment="
+                   f"{cfg.hoist_augment} is refused: a hoisted round makes the whole "
+                   "round's views before its first step, a window holds W steps")
     need(cfg.data.augment_backend in AUGMENT_BACKENDS,
          "data.augment_backend", cfg.data.augment_backend,
          f"have {AUGMENT_BACKENDS}")
@@ -181,11 +201,20 @@ class Trainer:
     test_ds: Optional[ArrayDataset] = None
     dict_users: Optional[dict] = None
     device: Any = None  # default: cuda (raises without a card)
+    images_npy: Optional[str] = None  # packed shard for host_stream
     history: list = field(default_factory=list)
 
     def __post_init__(self):
         cfg = self.cfg
         check_ported(cfg)
+        npy = None
+        if cfg.data.host_stream:
+            npy = self.images_npy or (cfg.data.root
+                                      and os.path.join(cfg.data.root, "train", "images.npy"))
+            if not npy or not os.path.exists(npy):
+                raise UnportedConfigError(
+                    "data.host_stream=True without a shard: host_stream requires a "
+                    "packed images.npy (data.root or Trainer(images_npy=...))")
         self.device = resolve_device(self.device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -237,10 +266,24 @@ class Trainer:
         else:
             self.active_lists = active_class_lists(cfg)[: self.n_clients]
 
+        # ---- host streaming: the images stay in the shard on disk. Reused
+        # (pinned) output buffers only on the card: on the CPU a tensor
+        # wraps the loader's array, as JAX's CPU backend aliases it
+        self.loader = None
+        if npy:
+            from fedmlp_tpu_torch.data.native_loader import PackLoader
+
+            self.loader = PackLoader(npy, reuse_buffers=self.device.type == "cuda")
+            if self.loader.shape != self.train_ds.images.shape:
+                raise ValueError(f"{npy} holds images {self.loader.shape}, the training "
+                                 f"set {self.train_ds.images.shape}")
         self.fd = rt.build_federated_data(
             self.train_ds.images, self.train_ds.targets, self.dict_users,
             self.hidden, self.active_lists, device=self.device,
+            device_images=self.loader is None,
         )
+        self._idx_host = self.fd.idx.cpu().numpy()
+        self.stream_peak_rows = 0  # most image rows a streamed round held at once
         self.dict_len = self.fd.n_local.cpu().numpy()
 
         # ---- model: one working module trains every client in turn; a
@@ -407,21 +450,32 @@ class Trainer:
         ``extra_state`` may carry 'teacher'/'cstate' entries for algorithms
         that persist them; ``state`` then holds their new values. With
         ``pre_augment`` the round's views (the algorithm's ``VIEW_MODE``)
-        are made before the round, ``pre_augment`` images at a time."""
+        are made before the round, ``pre_augment`` images at a time. With
+        ``host_stream`` the round's images come from the loader
+        (``RoundStream``: at once, or in windows of ``stream_window``
+        steps)."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
-        data = {"images": self.fd.images, "idx": self.fd.idx,
-                "ctx": self.client_ctx()}
+        images = self.fd.images
+        if self.loader is not None:
+            gidx = self._idx_host[np.arange(self.n_clients)[None, :, None], pos]
+            images = RoundStream(self.loader, gidx, pos_valid, cfg.data.stream_window,
+                                 self.device)
+        data = {"images": images, "idx": self.fd.idx, "ctx": self.client_ctx()}
         plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
                 "iter0": self.iter_num}
         if self._pre_augment_chunk:
+            whole = (images.open("client").whole() if self.loader is not None
+                     else rt.gather_round_images(images, self.fd.idx, pos))
             plan["views"] = rt.pre_augment_views(
-                rt.gather_round_images(self.fd.images, self.fd.idx, pos), self.generator,
-                view_mode=self.algo.VIEW_MODE, augment_backend=cfg.data.augment_backend,
-                mean=cfg.data.mean, std=cfg.data.std, chunk=self._pre_augment_chunk)
+                whole, self.generator, view_mode=self.algo.VIEW_MODE,
+                augment_backend=cfg.data.augment_backend, mean=cfg.data.mean,
+                std=cfg.data.std, chunk=self._pre_augment_chunk)
         out = round_fn(self.global_vars, data, plan, scalars, self.generator,
                        extra_state)
+        if self.loader is not None:
+            self.stream_peak_rows = max(self.stream_peak_rows, images.peak_rows)
         self.iter_num += pos.shape[0]
         return out
 

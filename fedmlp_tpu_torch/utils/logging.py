@@ -3,7 +3,8 @@
 Reference behavior (utils/utils.py:42-76): an output tree
 ``<output_dir>/<exp>/{models,logs}``, Python logging to file and stdout, and
 a scalar writer. Here the scalars go to a machine-readable JSONL stream,
-``logs/metrics.jsonl``, with the JAX package's record format."""
+``logs/metrics.jsonl``, with the JAX package's record format, and to a
+tensorboardX event file beside it where tensorboardX is installed."""
 
 from __future__ import annotations
 
@@ -50,17 +51,29 @@ def set_output_files(output_dir: str, exp_tag: str):
 
 class MetricWriter:
     """JSONL scalar stream: one ``{"tag", "value", "step", "time"}`` record
-    a line, appended and flushed as it is written."""
+    a line, appended and flushed as it is written; and, where tensorboardX
+    imports, the same scalars through its ``SummaryWriter`` into the same
+    directory (the reference's writer, optional as in the JAX package)."""
 
     def __init__(self, logs_dir: str):
         self.path = os.path.join(logs_dir, "metrics.jsonl")
         self._fh = open(self.path, "a")
+        self._tb = None
+        try:
+            from tensorboardX import SummaryWriter
+        except ImportError:
+            return
+        self._tb = SummaryWriter(logs_dir)
 
     def add_scalar(self, tag: str, value, step: int):
         rec = {"tag": tag, "value": float(value), "step": int(step),
                "time": time.time()}
         self._fh.write(json.dumps(rec) + "\n")
         self._fh.flush()
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def close(self):
         self._fh.close()
+        if self._tb is not None:
+            self._tb.close()

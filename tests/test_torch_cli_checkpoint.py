@@ -97,8 +97,9 @@ _SMALL = ["--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
 @pytest.mark.parametrize("extra,message", [
     (["--exp", "FedAVG", "--model", "Resnet18", "--client_stacking", "on"],
      "client_stacking='on' is refused: model 'Resnet18' has no stacked forward"),
-    (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1"],
-     "data.host_stream=True is not ported"),
+    (["--exp", "FedAVG", "--data_root", "/data/x", "--host_stream", "1",
+      "--stream_window", "2", "--hoist_augment", "1"],
+     "data.stream_window=2 with hoist_augment=1 is refused"),
     (["--exp", "FedAVG+FixMatch", "--batched_global", "on"],
      "batched_global='on' is refused: algorithm 'fixmatch' does not need the global"),
     (["--exp", "CBAFed", "--client_stacking", "on"],
@@ -126,6 +127,7 @@ def _cfg(**kw):
 
 @pytest.mark.parametrize("field,kw", [
     ("client_stacking", dict(client_stacking="on", model="resnet18")),
+    # host streaming runs (tests/test_torch_stream.py); refused without a shard
     ("data.host_stream", dict(data=DataConfig(name="synthetic", host_stream=True))),
     ("pre_augment", dict(pre_augment=16, client_stacking="on")),
     ("view_concat", dict(algorithm="fedmlp", view_concat="on", client_stacking="on")),
@@ -133,6 +135,7 @@ def _cfg(**kw):
     ("view_precat", dict(view_precat="sometimes")),
     ("model", dict(model="resnet9")),
     ("batched_global", dict(batched_global="on")),
+    # a window runs with host_stream only
     ("data.stream_window", dict(data=DataConfig(name="synthetic", stream_window=4))),
     ("mesh", dict(mesh=MeshConfig(data_axis=2))),
 ])

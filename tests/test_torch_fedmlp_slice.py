@@ -299,7 +299,8 @@ assert len(names) >= 40, names
 for needed in ("cli", "algos.fedavg", "algos.fixmatch", "algos.cbafed", "algos.fednoro",
                "algos.detection", "eval.evaluate", "ops.depthwise", "ops.dw_pallas",
                "ops.pallas_ops", "ops.fused_conv_bn", "tools.probe_fused_conv_bn",
-               "utils.checkpoint", "utils.logging"):
+               "utils.checkpoint", "utils.logging", "utils.profiling", "eval.visual",
+               "data.native_loader", "parallel.streaming"):
     assert "fedmlp_tpu_torch." + needed in names, needed
 assert not bad, bad
 import chip_smoke
@@ -320,14 +321,26 @@ def test_port_imports_no_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stderr
 
 
+# host-side figure code that imports scikit-learn inside its functions,
+# which nothing on a training or card path calls (as in the JAX package)
+_HOST_ONLY = {"sklearn": ("fedmlp_tpu_torch/eval/visual.py",)}
+
+
 def test_no_port_file_names_jax_in_an_import_statement():
     """The same over the source of every file of the package and of
     chip_smoke.py, imports inside functions included (those run only on
-    the card, where the fresh-interpreter test cannot reach them)."""
+    the card, where the fresh-interpreter test cannot reach them); the one
+    exception is scikit-learn inside a function of the files
+    ``_HOST_ONLY`` names."""
     files = sorted((_REPO / "fedmlp_tpu_torch").rglob("*.py")) + [_REPO / "chip_smoke.py"]
     assert len(files) >= 40
     for f in files:
-        for node in ast.walk(ast.parse(f.read_text())):
+        tree = ast.parse(f.read_text())
+        in_function = {id(n) for fn in ast.walk(tree)
+                       if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef))
+                       for n in ast.walk(fn)}
+        rel = f.relative_to(_REPO).as_posix()
+        for node in ast.walk(tree):
             if isinstance(node, ast.Import):
                 mods = [a.name for a in node.names]
             elif isinstance(node, ast.ImportFrom):
@@ -335,4 +348,7 @@ def test_no_port_file_names_jax_in_an_import_statement():
             else:
                 continue
             for mod in mods:
-                assert mod.split(".")[0] not in _FORBIDDEN, f"{f}: imports {mod}"
+                top = mod.split(".")[0]
+                if id(node) in in_function and rel in _HOST_ONLY.get(top, ()):
+                    continue
+                assert top not in _FORBIDDEN, f"{f}: imports {mod}"
