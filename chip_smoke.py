@@ -117,7 +117,21 @@ first failure:
    against resident bit for bit on the per-client loop and the lockstep
    engine; the loader's pinned buffers against ``gather_plain``; a traced
    streamed round whose Chrome trace lists CUDA kernels.
-18. profile, profile_strong, profile_convbn, time_b5b6, time_views,
+18. slice_mesh: the process mesh (``parallel/mesh.py``), two ranks sharing
+   the card (gloo on CUDA tensors). First the gates: FedMLP on B0 at
+   224 px, K=3 over the two ranks, float32, views drawn, cuDNN
+   deterministic, a stage-1 round that harvests and a stage-2 round, equal
+   bits to one rank on the same per-client streams; the lockstep engine
+   (K=4, 'normonly', dropout-free B0) within 1e-6 relative of one rank's
+   client losses, and its gathered global variables beside one rank's; the
+   data axis (1 client x 2 data shards, FedAVG on smallcnn) with equal bits
+   on both ranks and within 1e-5 relative of the same run on the CPU.
+   Then ``slice``'s geometry over the two ranks (10 clients each): a stage-1
+   round that harvests, a stage-2 round and the evaluation, each rank's
+   launches counted and summed into the path's, its round seconds and peak
+   memory beside ``slice``'s rounds 1 and 2. Last a one-rank NCCL group's
+   all-reduce and gather on the card.
+19. profile, profile_strong, profile_convbn, time_b5b6, time_views,
    time_knobs, time_stream (only
    when asked for): where a stage-1 round's device time goes, for both depthwise
    backends; what the strong view costs a FixMatch step; how the conv-BN
@@ -1932,6 +1946,258 @@ def phase_slice_stream(dev, card: str) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# slice_mesh: the process mesh (parallel/mesh.py), two ranks sharing the one
+# card through gloo (NCCL refuses two ranks on one GPU)
+# ----------------------------------------------------------------------
+
+MESH_RANKS = 2
+# the sharded lockstep round against one rank's: the frozen-global forward
+# runs at Kl·B = 64 images against K·B = 128, which may pick another cuDNN
+# algorithm
+MESH_LOCKSTEP_REL_TOL = 1e-6
+# the same runs' gathered global variables (``_relative``: one scale for the
+# set), after Adam, whose step on a weight with a gradient that is zero but
+# for rounding is ±lr whichever way the rounding points
+MESH_LOCKSTEP_VARS_REL_TOL = 1e-3
+# the data axis on the card against the same code's run on the CPU
+# (float32; the CPU's is held to JAX's data-axis round by
+# tests/test_torch_mesh.py). No one-rank run is the reference: as in JAX,
+# each data shard's batch norm takes the statistics of its own rows.
+MESH_DATA_REL_TOL = 1e-5
+
+
+def _digest(tree: dict) -> str:
+    """sha256 of a state dict's or server state's bytes, name by name."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(tree):
+        v = tree[n]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        if isinstance(v, np.ndarray):
+            h.update(n.encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def _solo(trainer_cls):
+    """``trainer_cls`` whose rounds run on one rank as under any mesh
+    (client k on a generator of its own): the run a sharded one equals."""
+    from fedmlp_tpu_torch.parallel.mesh import Mesh
+
+    class Solo(trainer_cls):
+        @property
+        def round_mesh(self):
+            return Mesh(1, 1, device=self.device)
+
+    return Solo
+
+
+def _mesh_run(tr, n_rounds: int) -> dict:
+    losses = [tr.run_round(r).client_losses for r in range(n_rounds)]
+    return {"losses": losses, "vars": _digest(tr.global_vars),
+            "state": _digest(tr.server_state),
+            "global_vars": {n: v.cpu() for n, v in tr.global_vars.items()}}
+
+
+def mesh_gates(dev) -> dict:
+    """The gates, in every rank: (1) FedMLP on B0 at 224 px, K=3 over the
+    two ranks, float32, views drawn, cuDNN deterministic, 1 stage-1 round
+    that harvests and 1 stage-2 round, against the same rounds on one rank
+    (rank 0); (2) the lockstep engine, K=4, 'normonly', a dropout-free B0,
+    against one rank; (3) the data axis (1 x 2): FedAVG on smallcnn, K=2,
+    'normonly', on the card and on the CPU."""
+    from fedmlp_tpu_torch.config import Config, DataConfig, MeshConfig
+    from fedmlp_tpu_torch.models import build_model
+    from fedmlp_tpu_torch.parallel.mesh import process_rank
+    from fedmlp_tpu_torch.train import Trainer
+
+    class NoDropTrainer(Trainer):
+        def _build_model(self):
+            return build_model(self.cfg.model, self.cfg.n_classes, dropout_p=0.0,
+                               drop_connect_rate=0.0)
+
+    rank, out = process_rank(), {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = flagship_config(3, 3 * 64, rounds_stage1=1, compute_dtype="float32")
+        runs = {"sharded": _mesh_run(Trainer(cfg, device=dev), 2)}
+        if rank == 0:
+            runs["solo"] = _mesh_run(_solo(Trainer)(cfg, device=dev), 2)
+            runs["max_rel"] = _relative(runs["sharded"]["global_vars"],
+                                        runs["solo"]["global_vars"])
+        out["bits"] = runs
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    cfg = flagship_config(4, 4 * 64, rounds_stage1=1, compute_dtype="float32",
+                          augment_backend="normonly", batched_global="on")
+    runs = {"sharded": _mesh_run(NoDropTrainer(cfg, device=dev), 2)}
+    if rank == 0:
+        runs["solo"] = _mesh_run(_solo(NoDropTrainer)(cfg, device=dev), 2)
+        runs["max_rel"] = _relative(runs["sharded"]["global_vars"],
+                                    runs["solo"]["global_vars"])
+    out["lockstep"] = runs
+    data_cfg = Config(algorithm="fedavg", model="smallcnn", batch_size=8, base_lr=1e-3,
+                      n_clients=2, local_ep=1, rounds_warmup=1, eval_every=100, seed=5,
+                      p_pos=0.0, compute_dtype="float32", output_dir="",
+                      mesh=MeshConfig(data_axis=MESH_RANKS),
+                      data=DataConfig(name="synthetic", n_classes=4, image_size=32,
+                                      synthetic_train_size=64, synthetic_test_size=16,
+                                      augment_backend="normonly"))
+    runs = {}
+    for where in (dev, "cpu"):
+        tr = Trainer(data_cfg, device=where)
+        if tr.round_mesh.data_shards != MESH_RANKS:
+            raise SystemExit(f"slice_mesh: the data gate ran on {tr.round_mesh}")
+        runs[str(torch.device(where).type)] = _mesh_run(tr, 1)
+    runs["max_rel"] = _relative(runs["cuda"]["global_vars"], runs["cpu"]["global_vars"])
+    out["data_axis"] = runs
+    for part in out.values():
+        for run in part.values():
+            if isinstance(run, dict):
+                run.pop("global_vars")
+    return out
+
+
+def mesh_flagship(dev, card: str) -> dict:
+    """The flagship at ``slice``'s geometry (K=20, B0, bf16, 224 px, batch
+    32, 128 images a client) over the ranks: one stage-1 round that
+    harvests, one stage-2 round, the evaluation, with this rank's launch
+    counts (reset just before, read just after), round seconds and peaks,
+    and the launches its clients imply and those all 20 imply."""
+    from fedmlp_tpu_torch.parallel.mesh import process_rank
+    from fedmlp_tpu_torch.train import Trainer
+
+    rank = process_rank()
+    tr = Trainer(flagship_config(K, N, rounds_stage1=1), device=dev)
+    valid = tr.fd.valid.cpu().numpy()
+    mine = tr.round_mesh.client_block(tr.n_clients)
+
+    def warp(clients) -> int:  # 2 views + 1 view a step; 1 + 2 harvest sweeps
+        steps = sum(int(math.ceil(valid[k].sum() / B)) for k in clients)
+        return 3 * steps + 3 * len(clients) * int(math.ceil(valid.shape[1] / (4 * B)))
+
+    evals = int(math.ceil(len(tr.test_ds) / (4 * B)))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    seconds, peaks, losses = [], [], []
+    for rnd in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses += tr.run_round(rnd).client_losses
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        print(f"phase slice_mesh: rank {rank} round {rnd} {seconds[-1]:.3f} s, clients "
+              f"{mine.start}-{mine.stop - 1}, peak {peaks[-1]:.2f} GiB [{card}]", flush=True)
+    metrics = tr.evaluate()
+    torch.cuda.synchronize()
+    launches = read_launch_counts()
+    finite = (all(math.isfinite(x) for x in losses)
+              and all(math.isfinite(v) for v in metrics.values())
+              and all(bool(torch.isfinite(torch.as_tensor(tr.server_state[n])).all())
+                      for n in ("tao", "proto")))
+    return {"launches": launches, "seconds": seconds, "peaks": peaks, "finite": finite,
+            "clients": [mine.start, mine.stop], "n_losses": len(losses),
+            "tagged": int((tr.server_state["tags"] > 0).sum()),
+            "expected_rank": {"fused_warp_normalize": warp(mine),
+                              "normalize_flip_cutout": evals},
+            "expected_all": {"fused_warp_normalize": warp(range(tr.n_clients)),
+                             "normalize_flip_cutout": MESH_RANKS * evals},
+            "metrics": metrics, "vars": _digest(tr.global_vars)}
+
+
+def mesh_rank(card: str) -> dict:
+    """What every rank of ``slice_mesh``'s group runs."""
+    dev = "cuda"  # card LOCAL_RANK modulo the cards: the one card
+    return {"gates": mesh_gates(dev), "flagship": mesh_flagship(dev, card)}
+
+
+def nccl_check() -> dict:
+    """A one-rank NCCL group: an all-reduce and a gather of CUDA tensors."""
+    import torch.distributed as dist
+
+    t = torch.arange(6.0, device="cuda")
+    dist.all_reduce(t)
+    parts = [torch.empty_like(t)]
+    dist.all_gather(parts, t)
+    torch.cuda.synchronize()
+    return {"backend": dist.get_backend(), "reduced": t.tolist(),
+            "gathered": parts[0].tolist()}
+
+
+def phase_slice_mesh(dev, card: str) -> dict:
+    """``slice_mesh``: two ranks sharing the card (gloo on CUDA tensors)
+    run the gates and the flagship (``mesh_rank``); their launches are
+    summed into the path's; then a one-rank NCCL group."""
+    from fedmlp_tpu_torch.parallel.mesh import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(mesh_rank, MESH_RANKS, (card,), device="cuda", timeout_s=600)
+    print(f"phase slice_mesh: {MESH_RANKS} ranks done in {time.perf_counter() - t0:.1f} s")
+    gates = [r["gates"] for r in ranks]
+    bits = gates[0]["bits"]
+    same = all(g["bits"]["sharded"] == bits["solo"] for g in gates)
+    print(f"phase slice_mesh: gate 1, FedMLP B0 224 px K=3 float32 views drawn, 2 "
+          f"shards against 1: equal bits {same} (largest relative difference "
+          f"{bits['max_rel']:.3e}), losses {bits['sharded']['losses']} [{card}]")
+    if not same:
+        raise SystemExit("slice_mesh: the sharded FedMLP run is not the one-rank run")
+    lock = gates[0]["lockstep"]
+    a, b = (np.asarray(sum(lock[w]["losses"], [])) for w in ("sharded", "solo"))
+    err = float(np.max(np.abs(a - b) / np.abs(b)))
+    ranks_agree = gates[1]["lockstep"]["sharded"] == lock["sharded"]
+    print(f"phase slice_mesh: gate 2, lockstep K=4 float32 normonly, 2 shards against "
+          f"1: client losses' largest relative difference {err:.3e} (tol "
+          f"{MESH_LOCKSTEP_REL_TOL:g}), gathered global variables' {lock['max_rel']:.3e} "
+          f"(tol {MESH_LOCKSTEP_VARS_REL_TOL:g}), ranks agree {ranks_agree} [{card}]")
+    if not (err <= MESH_LOCKSTEP_REL_TOL and lock["max_rel"] <= MESH_LOCKSTEP_VARS_REL_TOL
+            and ranks_agree):
+        raise SystemExit(f"slice_mesh: sharded lockstep off one rank's by {err} (losses), "
+                         f"{lock['max_rel']} (variables)")
+    data = [g["data_axis"] for g in gates]
+    twins = all(d[w] == data[0][w] for d in data for w in ("cuda", "cpu"))
+    print(f"phase slice_mesh: gate 3, data axis 1 x 2 (FedAVG smallcnn K=2): ranks hold "
+          f"equal bits {twins}, card against CPU largest relative difference "
+          f"{data[0]['max_rel']:.3e} (tol {MESH_DATA_REL_TOL:g}), losses card "
+          f"{data[0]['cuda']['losses']} CPU {data[0]['cpu']['losses']} [{card}]")
+    if not (twins and data[0]["max_rel"] <= MESH_DATA_REL_TOL):
+        raise SystemExit("slice_mesh: the data axis failed its gate")
+
+    flag = [r["flagship"] for r in ranks]
+    for r, f in enumerate(flag):
+        check_launches(f"slice_mesh rank {r}", f["launches"], f["expected_rank"])
+        print(f"phase slice_mesh: rank {r} clients {f['clients']}, tagged cells "
+              f"{f['tagged']}")
+        if not f["finite"]:
+            raise SystemExit(f"slice_mesh: rank {r} non-finite losses, metrics or state")
+        ROUND_SECONDS[f"slice_mesh_rank{r}"] = f["seconds"]
+        PEAK_GIB[f"slice_mesh_rank{r}"] = f["peaks"]
+    if len({f["vars"] for f in flag}) != 1 or flag[0]["metrics"] != flag[1]["metrics"]:
+        raise SystemExit("slice_mesh: the ranks' global models or metrics differ")
+    summed = {n: sum(f["launches"][n] for f in flag) for n in flag[0]["launches"]}
+    check_launches("slice_mesh", summed, flag[0]["expected_all"])
+    print(f"phase slice_mesh: global_test {json.dumps(flag[0]['metrics'])}")
+    base, base_peak = ROUND_SECONDS.get("slice"), PEAK_GIB.get("slice")
+    for rnd in range(2):
+        beside = (f"slice round {rnd + 1} {base[rnd + 1]:.3f} s, peak "
+                  f"{base_peak[rnd + 1]:.2f} GiB" if base else "nothing")
+        print(f"phase slice_mesh: round {rnd} (stage {rnd + 1}) " + ", ".join(
+            f"rank {r} {f['seconds'][rnd]:.3f} s peak {f['peaks'][rnd]:.2f} GiB"
+            for r, f in enumerate(flag)) + f" beside {beside} [{card}]")
+
+    nccl = launch(nccl_check, 1, device="cuda", timeout_s=120)[0]
+    want = [float(v) for v in range(6)]
+    print(f"phase slice_mesh: one-rank NCCL group: backend {nccl['backend']}, all-reduce "
+          f"{nccl['reduced']}, gather {nccl['gathered']}")
+    if nccl["backend"] != "nccl" or nccl["reduced"] != want or nccl["gathered"] != want:
+        raise SystemExit("slice_mesh: the NCCL group failed its check")
+    return summed
+
+
 # the backbones of the models_zoo phase: (name, cosine head)
 ZOO = (("resnet50", False), ("senet50", False), ("senet154", False), ("vgg16", False),
        ("dense121", False), ("resnet18", True))
@@ -2691,6 +2957,7 @@ _PATH_KERNELS = {
     "slice_preaug": ("fused_warp_normalize", "hshift_rows", "bce_with_logits_masked_sum",
                      "bce_with_logits_masked_grad", "normalize_flip_cutout"),
     "slice_stream": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_mesh": ("fused_warp_normalize", "normalize_flip_cutout"),
     **{path: ("fused_warp_normalize",) for path, _ in KNOBS},
 }
 
@@ -2833,12 +3100,13 @@ def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="build,kernel,slice,slice_lockstep,"
+    ap.add_argument("--phases", default="build,kernel,slice,slice_mesh,slice_lockstep,"
                                         "slice_stacked,slice_dw,cli,slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
                                         "slice_resnet18,models_zoo,slice_views,"
                                         "slice_preaug,slice_knobs,slice_stream",
-                    help="comma list of build,kernel,slice,slice_lockstep,slice_stacked,"
+                    help="comma list of build,kernel,slice,slice_mesh,slice_lockstep,"
+                         "slice_stacked,"
                          "slice_dw,cli,slice_strong,probe_convbn,slice_fednoro,"
                          "slice_baselines,slice_resnet18,models_zoo,slice_views,"
                          "slice_preaug,slice_knobs,slice_stream,profile,profile_strong,"
@@ -2865,6 +3133,8 @@ def main(argv=None) -> int:
     by_path = {}
     if "slice" in phases:
         by_path["slice"] = phase_slice(dev, card)
+    if "slice_mesh" in phases:
+        by_path["slice_mesh"] = phase_slice_mesh(dev, card)
     if "slice_lockstep" in phases:
         by_path["slice_lockstep"] = phase_slice_lockstep(dev, card)
     if "slice_stacked" in phases:

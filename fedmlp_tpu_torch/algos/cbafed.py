@@ -101,7 +101,7 @@ def _get_pseudo_fn(trainer):
             augment_backend=trainer.cfg.data.augment_backend,
             compute_dtype=trainer.cfg.compute_dtype,
             hoist_augment=bool(trainer.cfg.hoist_augment),
-            weight_stream_dtype=trainer.weight_stream_dtype,
+            weight_stream_dtype=trainer.weight_stream_dtype, mesh=trainer.round_mesh,
         )
     return trainer._cbafed_pseudo_fn
 

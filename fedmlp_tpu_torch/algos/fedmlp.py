@@ -274,7 +274,7 @@ def _get_harvest(trainer):
             trainer.model, trainer.cfg.data.mean, trainer.cfg.data.std,
             batch_size=trainer.cfg.batch_size * 4,
             augment_backend=trainer.cfg.data.augment_backend,
-            compute_dtype=trainer.cfg.compute_dtype,
+            compute_dtype=trainer.cfg.compute_dtype, mesh=trainer.round_mesh,
         )
     return trainer._fedmlp_harvest
 
@@ -293,7 +293,7 @@ def _get_stage2_fn(trainer):
                 augment_backend=cfg.data.augment_backend,
                 compute_dtype=cfg.compute_dtype, global_model=trainer.global_model,
                 hoist_augment=bool(cfg.hoist_augment),
-                weight_stream_dtype=trainer.weight_stream_dtype)
+                weight_stream_dtype=trainer.weight_stream_dtype, mesh=trainer.round_mesh)
         else:
             trainer._fedmlp_stage2_fn = trainer.make_round(
                 stage2_loss_fn, stage2_stacked_loss_fn, view_mode="single",

@@ -11,6 +11,13 @@ Usage:
 on the card unless ``--device cpu`` is given; without a card and without
 that flag it raises. An ``--exp``, ``--model`` or engine value that the
 port has not got exits with a message that says so.
+
+Under ``torchrun --nproc_per_node N -m fedmlp_tpu_torch.cli ...`` the N
+processes form one group and the run shards over them (the JAX CLI shards
+over every device): the clients split over N client shards, each rank
+takes card LOCAL_RANK modulo the cards, and only rank 0 writes logs,
+metrics and checkpoints. A rank that raises ends the group with a non-zero
+exit.
 """
 
 from __future__ import annotations
@@ -287,19 +294,28 @@ def config_from_args(a) -> Config:
 
 
 def main(argv=None):
-    from fedmlp_tpu_torch.data.datasets import load_packed_dataset
-    from fedmlp_tpu_torch.eval.evaluate import class_test
-    from fedmlp_tpu_torch.train import Trainer, UnportedConfigError, check_ported
-    from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-    from fedmlp_tpu_torch.utils.logging import set_output_files, set_seed
+    from fedmlp_tpu_torch.parallel import mesh
+    from fedmlp_tpu_torch.train import UnportedConfigError, check_ported
 
     a = args_parser(argv)
     cfg = config_from_args(a)
-    try:
-        check_ported(cfg)
+    try:  # the world a launcher names, before any group starts
+        check_ported(cfg, int(os.environ.get("WORLD_SIZE", "1")))
     except UnportedConfigError as e:
         raise SystemExit(f"fedmlp_tpu_torch: {e}") from e
     device = resolve_device(a.device)
+    with mesh.rank_guard():
+        mesh.init_from_env(device)
+        _run(a, cfg, device)
+
+
+def _run(a, cfg, device):
+    from fedmlp_tpu_torch.data.datasets import load_packed_dataset
+    from fedmlp_tpu_torch.eval.evaluate import class_test
+    from fedmlp_tpu_torch.train import Trainer
+    from fedmlp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from fedmlp_tpu_torch.utils.logging import set_output_files, set_seed
+
     train_ds = test_ds = None
     if cfg.data.root:  # <data_root>/{train,test}, packed (tools/ingest.py)
         train_ds = load_packed_dataset(os.path.join(cfg.data.root, "train"))

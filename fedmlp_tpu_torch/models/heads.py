@@ -13,6 +13,7 @@ class LinearHead(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int, bias: bool = True):
         super().__init__()
+        self.in_features, self.num_classes = in_features, num_classes
         self.fc = nn.Linear(in_features, num_classes, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -31,6 +32,7 @@ class FCNormHead(nn.Module):
 
     def __init__(self, in_features: int, num_classes: int, s: float = 30.0):
         super().__init__()
+        self.in_features, self.num_classes = in_features, num_classes
         self.s = s
         self.weight = nn.Parameter(torch.empty(in_features, num_classes))
 
@@ -46,5 +48,6 @@ class FCNormHead(nn.Module):
 
 
 def make_head(in_features: int, num_classes: int, normed: bool = False) -> nn.Module:
-    """The task head every backbone names ``head``."""
+    """The task head every backbone names ``head`` (its widths as
+    ``in_features`` and ``num_classes``)."""
     return (FCNormHead if normed else LinearHead)(in_features, num_classes)

@@ -9,6 +9,15 @@ steps written out); ``make_lockstep_local_round`` runs the steps outside and
 the clients inside; ``make_stacked_local_round`` runs all clients as one
 channel-stacked network (``models/stacked.py``).
 
+Under a ``Mesh`` (``parallel/mesh.py``; the JAX package's ``shard_map``
+over its ``client`` and ``data`` axes) a rank runs the clients of its block
+of the client axis (``_local_part``) and gathers the round's outputs into
+the whole [K, ...] on every rank, so everything after the round runs
+replicated. Client k then draws from a generator of its own, seeded from
+the k-th of K draws of the round's generator (``client_generators``; JAX's
+``split(key, K)``), so the round does not depend on which rank runs k. The
+per-client loop also splits each step's batch over the data shards.
+
 Parity notes (as in the JAX package):
   * Adam is created afresh for every client every round (the reference
     constructs a new torch.optim.Adam per call, utils/local_training.py:
@@ -36,6 +45,7 @@ from fedmlp_tpu_torch.data.masking import (
     observed_targets,
 )
 from fedmlp_tpu_torch.ops import augment as A
+from fedmlp_tpu_torch.parallel.mesh import pad_clients
 from fedmlp_tpu_torch.parallel.streaming import TableImages, open_round_images
 
 
@@ -271,6 +281,51 @@ def _add_global_logits(global_model, views: dict) -> None:
         views["g_logits" + v[1:]] = g.reshape(x.shape[:-3] + g.shape[1:])
 
 
+# the JAX package's name here for the padded client axis's length
+padded_client_count = pad_clients
+
+
+# a data shard's generator seed: the client's seed plus its data rank times
+# this odd constant, modulo 2**64 (JAX folds the data rank into the key)
+_DATA_SEED_STRIDE = 0x9E3779B97F4A7C15
+
+
+def client_generators(generator: torch.Generator, n_clients: int, device,
+                      data_rank: int = 0) -> list:
+    """A generator of its own for each of ``n_clients`` clients: client k's
+    is seeded from the k-th of ``n_clients`` draws of ``generator``, made in
+    client order on every rank alike (JAX's ``split(key, K)``), and on data
+    shard ``data_rank`` mixed with that rank (JAX's ``fold_in(key,
+    axis_index('data'))``)."""
+    seeds = torch.randint(0, 2**62, (n_clients,), generator=generator,
+                          device=generator.device).tolist()
+    return [torch.Generator(device=device).manual_seed(
+        (s + data_rank * _DATA_SEED_STRIDE) % 2**64) for s in seeds]
+
+
+def _local_part(data: dict, plan: dict, extra_state: dict, clients: range, rows: slice):
+    """(data, plan, extra_state) of the clients ``clients`` and the batch
+    rows ``rows`` of every step, client indices counted from the block's
+    first. ``plan['live']`` [S, n] keeps whether each step of each client
+    is a real one, from its whole batch. A ``RoundStream`` in ``data``
+    holds these clients and rows already (``Trainer.local_pass``)."""
+    sl = slice(clients.start, clients.stop)
+    data = {**data, "idx": data["idx"][sl], "ctx": {n: v[sl] for n, v in data["ctx"].items()}}
+    pos_valid = plan["pos_valid"][:, sl]
+    plan = {**plan, "pos": plan["pos"][:, sl, rows], "pos_valid": pos_valid[:, :, rows],
+            "live": pos_valid.any(2), "sample": {n: t[sl] for n, t in plan["sample"].items()}}
+    extra_state = {name: {n: v[sl] for n, v in part.items()}
+                   for name, part in extra_state.items()}
+    return data, plan, extra_state
+
+
+def _gathered(mesh, n_clients: int, out: dict, mean_losses, aux: dict):
+    """A rank's round outputs of its clients → those of all clients."""
+    out = {name: mesh.gather_clients(part, n_clients) for name, part in out.items()}
+    losses = mesh.gather_clients({"loss": mean_losses}, n_clients)["loss"]
+    return out, losses, mesh.gather_client_dicts(aux, n_clients)
+
+
 def broadcast_to_clients(variables: dict, n_clients: int) -> dict:
     """Global variables as a client-stacked dict [K, ...] (expanded views,
     no copies): the reference's per-client deepcopy(netglob)."""
@@ -317,7 +372,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                      augment_backend: str = "auto",
                      compute_dtype: str = "float32", global_model=None,
                      teacher_model=None, hoist_augment: bool = False,
-                     weight_stream_dtype: torch.dtype | None = None):
+                     weight_stream_dtype: torch.dtype | None = None, mesh=None):
     """A function running one local round for every client in turn.
 
     ``loss_fn(model, views, sample, svalid, ctx, generator, scalars) ->
@@ -378,9 +433,27 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     reaches the float32 master through the two casts, rounded to the type
     as in JAX; buffers are not cast, and the batch-norm updates land in the
     module's own.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the rank runs the clients of its
+    block, each on its own generator (``client_generators``), and returns
+    every client's outputs, gathered. Over D > 1 data shards each takes its
+    B/D rows of every step, with batch-norm statistics over them; the
+    gradients are averaged over the data group before Adam, the batch-norm
+    statistics and the loss after the step, the aux sums summed, and a step
+    is a no-op when its whole batch is padding (JAX's ``pmean``, ``psum``
+    and ``pmax(has_any)``); ``post_step`` is refused there, as in JAX.
+    ``hoist_augment`` and views made before the round are refused under any
+    mesh of more than one rank: a rank holds its own clients' and rows'
+    images.
     """
     if teacher_scope not in ("all", "params"):
         raise ValueError(f"unknown teacher_scope {teacher_scope!r}")
+    split_batch = mesh is not None and mesh.data_shards > 1
+    if split_batch and post_step is not None:
+        raise ValueError("a round over data shards takes no post_step: its per-client "
+                         "state would differ between shards")
+    if mesh is not None and mesh.size > 1 and hoist_augment:
+        raise ValueError("hoist_augment is refused under a mesh of more than one rank")
     has_teacher = teacher_decay is not None
     augment_views = _view_maker(view_mode, augment_backend, mean, std)
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
@@ -411,10 +484,12 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
             alpha = min(one - one / (np.float32(it) + one), alpha)
         return float(alpha), float(one - alpha)
 
-    def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
+    def run_clients(global_vars, data, plan, scalars, generator, gens, extra_state):
+        """The round of the plan's clients in turn; client k draws from
+        ``gens[k]``, or all from ``generator`` when ``gens`` is None."""
         pos, pos_valid = plan["pos"], plan["pos_valid"]
         S, K, B = pos.shape
-        extra_state = extra_state or {}
+        live = plan.get("live", pos_valid.any(2))
         teacher, cstate = extra_state.get("teacher"), extra_state.get("cstate")
         if has_teacher != (teacher is not None):
             raise ValueError("a round with a teacher needs extra_state['teacher'], "
@@ -439,6 +514,7 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         mean_losses = torch.zeros((K,), dtype=torch.float32, device=device)
         aux_sums = [{} for _ in range(K)]
         for k in range(K):
+            gen = generator if gens is None else gens[k]
             model.load_state_dict(global_vars)
             model.train()
             opt = torch_adam(model.parameters(), lr)
@@ -452,13 +528,13 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
             loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             cnt = 0
             for s in range(S):
-                if not pos_valid[s, k].any():
+                if not live[s, k]:
                     continue  # padding step: a true no-op
                 p = pos_d[s, k]
                 sample = {n: t[k, p] for n, t in plan["sample"].items()}
                 sample["_pos"] = p
                 if made is None:
-                    views = augment_views(src.client_step(k, s), generator)
+                    views = augment_views(src.client_step(k, s), gen)
                 else:
                     views = {n: v[s, k] for n, v in made.items()}
                 with cast:
@@ -467,21 +543,30 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                             _add_global_logits(global_model, views)
                         if has_teacher:
                             _, views[t_key] = teacher_model(views[t_view])
-                    res = step_loss(views, sample, valid_d[s, k], ctx, generator,
-                                    scalars, **kw)
+                    res = step_loss(views, sample, valid_d[s, k], ctx, gen, scalars, **kw)
                 loss, aux = res if isinstance(res, tuple) else (res, {})
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                loss = loss.detach().float()
+                aux = {n: a.detach().float() for n, a in aux.items()}
+                if split_batch:
+                    # JAX's pmean of the gradients before Adam, of the
+                    # batch-norm statistics and the loss after the step;
+                    # psum of the aux
+                    mesh.data_mean([q.grad for q in model.parameters() if q.grad is not None])
                 opt.step()
+                if split_batch:
+                    mesh.data_mean([b for b in model.buffers() if b.is_floating_point()]
+                                   + [loss])
+                    mesh.data_sum(list(aux.values()))
                 if has_teacher:
                     with torch.no_grad():
                         alpha, one_minus = teacher_alpha(iter0 + s)
                         torch._foreach_mul_(t_dst, alpha)
                         torch._foreach_add_(t_dst, t_src, alpha=one_minus)
-                aux = {n: a.detach().float() for n, a in aux.items()}
                 if post_step is not None:
                     kw["cstate"] = post_step(kw["cstate"], aux, sample, valid_d[s, k], ctx)
-                loss_sum += loss.detach().float()
+                loss_sum += loss
                 cnt += 1
                 for n, a in aux.items():
                     aux_sums[k][n] = aux_sums[k][n] + a if n in aux_sums[k] else a
@@ -496,6 +581,22 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                     out["cstate"][n][k].copy_(v)
         src.finish()
         return out, mean_losses, _stack_aux(aux_sums)
+
+    def round_fn(global_vars, data, plan, scalars, generator, extra_state=None):
+        extra_state = extra_state or {}
+        if mesh is None:
+            return run_clients(global_vars, data, plan, scalars, generator, None,
+                               extra_state)
+        if plan.get("views") is not None and mesh.size > 1:
+            raise ValueError("views made before the round are refused under a mesh of "
+                             "more than one rank")
+        _, K, B = plan["pos"].shape
+        block = mesh.client_block(K)
+        gens = client_generators(generator, K, data["idx"].device, mesh.data_rank)
+        parts = _local_part(data, plan, extra_state, block, mesh.data_rows(B))
+        out, losses, aux = run_clients(global_vars, parts[0], parts[1], scalars, generator,
+                                       gens[block.start:block.stop], parts[2])
+        return _gathered(mesh, K, out, losses, aux)
 
     return round_fn
 
@@ -523,7 +624,7 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
                               view_mode: str = "dual", needs_global: bool = True,
                               augment_backend: str = "auto",
                               compute_dtype: str = "float32", global_model=None,
-                              view_precat: bool = False):
+                              view_precat: bool = False, mesh=None):
     """``make_local_round``'s round for algorithms without a teacher or
     per-client state (FedMLP's two stages, FedNoRo), in the lockstep order:
     each step makes every view once for all K·B images (the first view's
@@ -540,7 +641,15 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
     Same ``round_fn`` signature and outputs as ``make_local_round`` (aux sums
     are empty); views are always made in the step, and ``extra_state`` must
     be None. Against the per-client loop only the generator's order differs
-    (all K·B draws of a step at once), and the frozen-global forward's batch."""
+    (all K·B draws of a step at once), and the frozen-global forward's batch.
+
+    ``mesh`` (client shards only, as in JAX): the rank runs its block of
+    clients in lockstep on a generator of its own, seeded from the rank's
+    draw of C made from ``generator`` (``client_generators``), and returns
+    every client's outputs, gathered."""
+    if mesh is not None and mesh.data_shards > 1:
+        raise ValueError("the lockstep round has no data-parallel path: a mesh of "
+                         "client shards only")
     augment_views = _view_maker(view_mode, augment_backend, mean, std)
     call = _LossCall(model, loss_fn)
     pnames = [n for n, _ in model.named_parameters()]
@@ -549,6 +658,16 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
         if extra_state or plan.get("views") is not None:
             raise ValueError("the lockstep round makes its views in the step and "
                              "carries no teacher or per-client state")
+        if mesh is None:
+            return run_lockstep(global_vars, data, plan, scalars, generator)
+        K = plan["pos"].shape[1]
+        block = mesh.client_block(K)
+        gen = client_generators(generator, mesh.client_shards,
+                                data["idx"].device)[mesh.client_rank]
+        data, plan, _ = _local_part(data, plan, {}, block, slice(None))
+        return _gathered(mesh, K, *run_lockstep(global_vars, data, plan, scalars, gen))
+
+    def run_lockstep(global_vars, data, plan, scalars, generator):
         pos_valid = plan["pos_valid"]
         S, K, _ = pos_valid.shape
         device, pos_d, valid_d, _, cast = _step_setup(
@@ -596,9 +715,11 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
                 cnt[k] += 1
             adam_update(*update, lr)
         src.finish()
-        out = {n: torch.stack([c["model." + n].detach() for c in clients])
-               for n in global_vars}
-        mean_losses = torch.stack([ls / max(c, 1) for ls, c in zip(loss_sum, cnt)])
+        # (a rank of a mesh may hold no client: K = 0)
+        out = {n: torch.stack([c["model." + n].detach() for c in clients]) if K
+               else v.new_empty((0,) + v.shape) for n, v in global_vars.items()}
+        mean_losses = (torch.stack([ls / max(c, 1) for ls, c in zip(loss_sum, cnt)]) if K
+                       else torch.zeros((0,), device=device))
         return {"vars": out}, mean_losses, {}
 
     return round_fn
@@ -713,7 +834,7 @@ def _stack_aux(aux_sums: list) -> dict:
 # ----------------------------------------------------------------------
 
 def make_harvest_fn(model, mean, std, batch_size: int, augment_backend: str = "auto",
-                    compute_dtype: str = "float32"):
+                    compute_dtype: str = "float32", mesh=None):
     """``harvest(stacked_vars, images, idx [K, M], generator, loader=None)``
     → (features [K, M, D], probs [K, M, C]): each client's own weights, in
     eval mode, over its table in chunks of ``batch_size`` (the last chunk
@@ -722,12 +843,20 @@ def make_harvest_fn(model, mean, std, batch_size: int, augment_backend: str = "a
     from ``loader`` (a ``PackLoader`` over the packed shard), chunk j+1
     gathered on the loader's thread while chunk j runs, as the JAX
     package's harvest (``fl_runtime.py:1501-1546``; its chunk is all K
-    clients' j-th, here one client's, in the order they run)."""
+    clients' j-th, here one client's, in the order they run).
+
+    ``mesh``: the rank harvests the clients of its block, client k on its
+    own generator (``client_generators``, every data shard alike), and
+    returns every client's features and probabilities, gathered."""
     weak = A.pick_weak_backend(augment_backend)
 
     @torch.no_grad()
     def harvest(stacked_vars, images, idx, generator, loader=None):
         K, M = idx.shape
+        clients, gens = range(K), None
+        if mesh is not None:
+            clients = mesh.client_block(K)
+            gens = client_generators(generator, K, idx.device)
         nb = math.ceil(M / batch_size)
         pad = nb * batch_size - M
         idx_p = torch.cat([idx, idx[:, -1:].expand(K, pad)], 1) if pad else idx
@@ -735,29 +864,39 @@ def make_harvest_fn(model, mean, std, batch_size: int, augment_backend: str = "a
         if images is None:
             if loader is None:
                 raise ValueError("a harvest of streamed images needs the loader")
-            chunks = idx_p.cpu().numpy().reshape(K * nb, batch_size)
-            loader.submit(chunks[0])
+            chunks = idx_p[clients.start:clients.stop].cpu().numpy().reshape(-1, batch_size)
+            if len(chunks):
+                loader.submit(chunks[0])
         feats, probs = [], []
-        for k in range(K):
+        for i, k in enumerate(clients):
+            gen = generator if gens is None else gens[k]
             model.load_state_dict(client_vars(stacked_vars, k))
             model.eval()
             fk, pk = [], []
             for j in range(nb):
                 if images is None:
                     host = loader.wait()
-                    if k * nb + j + 1 < K * nb:
-                        loader.submit(chunks[k * nb + j + 1])
+                    if i * nb + j + 1 < len(chunks):
+                        loader.submit(chunks[i * nb + j + 1])
                     imgs = loader.to_device(host, idx.device)
                 else:
                     imgs = images[idx_p[k, j * batch_size:(j + 1) * batch_size]]
-                x = weak(imgs, generator, mean, std)
+                x = weak(imgs, gen, mean, std)
                 with cast:
                     f, logits = model(x)
                 fk.append(f.float())
                 pk.append(torch.sigmoid(logits.float()))
             feats.append(torch.cat(fk)[:M])
             probs.append(torch.cat(pk)[:M])
-        return torch.stack(feats), torch.stack(probs)
+        if mesh is None:
+            return torch.stack(feats), torch.stack(probs)
+        # a rank past the last client holds none: the widths from the head
+        f = torch.stack(feats) if feats else idx.new_zeros(
+            (0, M, model.head.in_features), dtype=torch.float32)
+        p = torch.stack(probs) if probs else idx.new_zeros(
+            (0, M, model.head.num_classes), dtype=torch.float32)
+        out = mesh.gather_clients({"f": f, "p": p}, K)
+        return out["f"], out["p"]
 
     return harvest
 

@@ -149,7 +149,10 @@ class RoundStream:
     indices ``gidx`` [S, K, B] (numpy), the plan's ``pos_valid`` [S, K, B],
     the window (0: the whole round at once) and the device the images go
     to. ``open(order)`` hands an engine its source; ``peak_rows`` is the
-    most image rows any of them held at once."""
+    most image rows any of them held at once. Under a mesh ``gidx`` holds a
+    rank's clients and its data shard's rows [S, Kl, B/D], and ``pos_valid``
+    those clients' whole batches [S, Kl, B] (a step streams when any of its
+    rows is real, on every data shard alike)."""
 
     def __init__(self, loader, gidx: np.ndarray, pos_valid: np.ndarray, window: int, device):
         if window < 0:

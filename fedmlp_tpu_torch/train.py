@@ -13,6 +13,13 @@ the packed ``images.npy`` on disk and reach each round through a
 ``PackLoader`` (``data/native_loader.py``): the whole round at once, or with
 ``data.stream_window=W`` in windows of W steps (``parallel/streaming.py``).
 
+Inside a process group (``torchrun``, or ``parallel.mesh.launch``) the
+trainer builds a mesh over the world (``parallel/mesh.py``; ``use_mesh``, as
+the JAX ``Trainer``): C = world / ``mesh.data_axis`` client shards each train
+their block of the clients, the round's outputs are gathered on every rank,
+and everything after the round (aggregation, server state, evaluation, the
+host generator) runs the same on every rank. Only rank 0 writes files.
+
 Precision: parameters and Adam state are float32. With
 ``compute_dtype='bfloat16'`` the forwards run under bf16 autocast on the
 card; on the CPU everything is float32. On the card TF32 is switched OFF for
@@ -45,6 +52,7 @@ from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
 from fedmlp_tpu_torch.models.factory import is_ported as model_is_ported
 from fedmlp_tpu_torch.ops.augment import AUGMENT_BACKENDS
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
+from fedmlp_tpu_torch.parallel.mesh import make_mesh, process_rank, world_size
 from fedmlp_tpu_torch.parallel.streaming import RoundStream
 
 log = logging.getLogger("fedmlp_tpu_torch")
@@ -67,7 +75,7 @@ def engine_of(cfg: Config) -> str:
     return "lockstep" if cfg.batched_global == "on" else "mapped"
 
 
-def check_ported(cfg: Config) -> None:
+def check_ported(cfg: Config, world: Optional[int] = None) -> None:
     """Raise :class:`UnportedConfigError`, naming the field, for every
     ``Config`` value that selects an algorithm, model, backend or engine of
     the JAX package that the port has not got, and for every engine
@@ -76,8 +84,10 @@ def check_ported(cfg: Config) -> None:
     view, views made in the step, device-resident data, grouped-conv
     depthwise. Every ``dw_backend`` of the JAX package, ``remat``,
     ``remat_stages``, ``weight_stream``, ``data.host_stream`` and
-    ``data.stream_window`` run as there; left are ``param_dtype`` (float32
-    only; the JAX package reads it nowhere) and the mesh. ``scan_unroll``, ``client_unroll``,
+    ``data.stream_window`` run as there; left is ``param_dtype`` (float32
+    only; the JAX package reads it nowhere). The mesh is checked against a
+    world of ``world`` processes (default: the process group's, 1 outside
+    one; ``_mesh_refusals``). ``scan_unroll``, ``client_unroll``,
     ``small_pack`` and, where no lockstep engine runs the one-forward loss,
     ``view_precat`` only shape the JAX package's XLA program and are the
     identity here."""
@@ -121,8 +131,6 @@ def check_ported(cfg: Config) -> None:
     need(cfg.data.augment_backend in AUGMENT_BACKENDS,
          "data.augment_backend", cfg.data.augment_backend,
          f"have {AUGMENT_BACKENDS}")
-    need(cfg.mesh.data_axis == 1 and cfg.mesh.client_axis in (-1, 1),
-         "mesh", cfg.mesh, "one device")
     if cfg.algorithm == "fedmlp" and cfg.fedmlp.stage2_distill and cfg.pre_augment > 0:
         # the pre-made views are the algorithm's two ('x1', 'x2'); the stage-2
         # distillation term reads the single view's frozen-global logits,
@@ -132,6 +140,7 @@ def check_ported(cfg: Config) -> None:
                    "pre-made views are the algorithm's two")
     if cfg.algorithm in algo_registry.registered() and model_is_ported(cfg.model):
         bad += _engine_refusals(cfg)
+        bad += _mesh_refusals(cfg, world_size() if world is None else world)
     if bad:
         raise UnportedConfigError("; ".join(bad))
 
@@ -172,6 +181,50 @@ def _engine_refusals(cfg: Config) -> list:
     return bad
 
 
+def _mesh_refusals(cfg: Config, world: int) -> list:
+    """What a mesh of world / D client shards × D = ``mesh.data_axis`` data
+    shards cannot run: the JAX package's refusals (``fedmlp_tpu/train.py:
+    313-332``, ``:341-366``, ``:400-415``), and where it degrades silently
+    the port's own (no knob is accepted and then ignored)."""
+    m = cfg.mesh
+    D = max(1, m.data_axis)
+    C = max(1, world // D)
+    bad = []
+    if m.client_axis != -1:
+        bad.append(f"mesh.client_axis={m.client_axis} is refused: the client axis "
+                   "takes the processes the data axis leaves (the JAX package never "
+                   "reads it); leave it -1")
+    if C * D != world:
+        bad.append(f"mesh.data_axis={m.data_axis} is refused: the mesh needs "
+                   f"{C * D} processes, the world has {world}")
+    if D > 1:
+        if cfg.batch_size % D:
+            bad.append(f"batch_size={cfg.batch_size} with mesh.data_axis={D} is refused: "
+                       "a data shard takes batch_size/data_axis rows of each step")
+        if hasattr(algo_registry.get_algorithm(cfg.algorithm), "post_step"):
+            bad.append(f"algorithm={cfg.algorithm!r} with mesh.data_axis={D} is refused: "
+                       "its per-client state (post_step) would differ between data "
+                       "shards")
+        if cfg.batched_global == "on":
+            bad.append(f"batched_global='on' with mesh.data_axis={D} is refused: the "
+                       "lockstep engine has no data-parallel path")
+    if C * D > 1:
+        if cfg.client_stacking == "on":
+            bad.append(f"client_stacking='on' with a mesh of {C} client x "
+                       f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: "
+                       "the stacked engine runs on one process")
+        if cfg.hoist_augment:
+            bad.append(f"hoist_augment={cfg.hoist_augment} with a mesh of {C} client x "
+                       f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: a "
+                       "rank holds its own clients' and rows' images, the hoisted "
+                       "round's draws are made over all of them")
+        if cfg.pre_augment > 0:
+            bad.append(f"pre_augment={cfg.pre_augment} with a mesh of {C} client x "
+                       f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: "
+                       "views made before the round need the whole round's images")
+    return bad
+
+
 def partition_cache_path(cfg: Config, train_ds: ArrayDataset) -> Optional[str]:
     """``<output_dir>/{iid,non-iid}-dictusers/<tag>.npy``, the file the JAX
     package's ``Trainer`` reads and writes (a pickled dict through
@@ -201,12 +254,13 @@ class Trainer:
     test_ds: Optional[ArrayDataset] = None
     dict_users: Optional[dict] = None
     device: Any = None  # default: cuda (raises without a card)
+    use_mesh: bool = True  # inside a process group, shard over its processes
     images_npy: Optional[str] = None  # packed shard for host_stream
     history: list = field(default_factory=list)
 
     def __post_init__(self):
         cfg = self.cfg
-        check_ported(cfg)
+        check_ported(cfg, world_size() if self.use_mesh else 1)
         npy = None
         if cfg.data.host_stream:
             npy = self.images_npy or (cfg.data.root
@@ -219,6 +273,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+        self.mesh = (make_mesh(data_shards=max(1, cfg.mesh.data_axis), device=self.device)
+                     if self.use_mesh else None)
         self.rng = np.random.RandomState(cfg.seed)
         if self.train_ds is None:
             self.train_ds = make_synthetic_dataset(
@@ -251,9 +307,12 @@ class Trainer:
                         self.train_ds.targets, cfg.n_classes, 1.0, cfg.n_clients,
                         cfg.seed, cfg.alpha_dirichlet,
                     )
-                if cache:
+                if cache and process_rank() == 0:
+                    # whole or not at all: another rank or run may read it
                     os.makedirs(os.path.dirname(cache), exist_ok=True)
-                    np.save(cache, self.dict_users, allow_pickle=True)
+                    part = f"{cache}.{os.getpid()}.npy"
+                    np.save(part, self.dict_users, allow_pickle=True)
+                    os.replace(part, cache)
         self.n_clients = len(self.dict_users)
 
         # ---- label hiding (reference: main.py:58-66) ----
@@ -368,11 +427,18 @@ class Trainer:
             return rt.make_stacked_local_round(self.model, stacked_loss_fn,
                                                hoist_augment=bool(cfg.hoist_augment), **kw)
         if self.engine == "lockstep":
-            return rt.make_lockstep_local_round(self.model, loss_fn,
-                                                view_precat=view_precat, **kw)
+            return rt.make_lockstep_local_round(self.model, loss_fn, view_precat=view_precat,
+                                                mesh=self.round_mesh, **kw)
         return rt.make_local_round(self.model, loss_fn,
                                    hoist_augment=bool(cfg.hoist_augment),
-                                   weight_stream_dtype=self.weight_stream_dtype, **kw)
+                                   weight_stream_dtype=self.weight_stream_dtype,
+                                   mesh=self.round_mesh, **kw)
+
+    @property
+    def round_mesh(self):
+        """The mesh the rounds shard over, or None on one process (the JAX
+        ``Trainer``'s ``round_mesh``)."""
+        return self.mesh if self.mesh is not None and self.mesh.size > 1 else None
 
     def _build_model(self):
         """An uninitialized module of ``cfg.model``: the one place the
@@ -453,14 +519,21 @@ class Trainer:
         are made before the round, ``pre_augment`` images at a time. With
         ``host_stream`` the round's images come from the loader
         (``RoundStream``: at once, or in windows of ``stream_window``
-        steps)."""
+        steps); under a mesh the rank streams only its clients' rows of its
+        data shard."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
         images = self.fd.images
         if self.loader is not None:
             gidx = self._idx_host[np.arange(self.n_clients)[None, :, None], pos]
-            images = RoundStream(self.loader, gidx, pos_valid, cfg.data.stream_window,
+            live = pos_valid
+            mesh = self.round_mesh
+            if mesh is not None:
+                block = mesh.client_block(self.n_clients)
+                mine = slice(block.start, block.stop)
+                gidx, live = gidx[:, mine, mesh.data_rows(cfg.batch_size)], pos_valid[:, mine]
+            images = RoundStream(self.loader, gidx, live, cfg.data.stream_window,
                                  self.device)
         data = {"images": images, "idx": self.fd.idx, "ctx": self.client_ctx()}
         plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,

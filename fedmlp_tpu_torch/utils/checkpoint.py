@@ -10,7 +10,9 @@ A checkpoint captures the full round state:
     (augmentation, dropout and stochastic-depth draws), the round index,
     the lifetime iteration counter and the history
 
-so training resumes where it stopped, with the same plans and draws.
+so training resumes where it stopped, with the same plans and draws. In a
+group of processes rank 0 writes the file and every rank reads it (the
+state is the same on every rank).
 Tensors are stored as numpy arrays and restored onto the trainer's device.
 The file is a pickle, ``ckpt_{round}.pkl``: load only files that this
 program wrote.
@@ -23,6 +25,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from fedmlp_tpu_torch.parallel.mesh import process_rank
 
 _TENSOR = "__tensor__"
 
@@ -61,6 +65,10 @@ def _persistent_state(trainer):
 
 
 def save_checkpoint(path: str, trainer, rnd: int) -> str:
+    """Write ``ckpt_{rnd}.pkl`` under ``path`` (rank 0 only); returns its name."""
+    fname = os.path.join(path, f"ckpt_{rnd}.pkl")
+    if process_rank():
+        return fname
     os.makedirs(path, exist_ok=True)
     payload = {
         "round": rnd,
@@ -75,7 +83,6 @@ def save_checkpoint(path: str, trainer, rnd: int) -> str:
         ],
         "persistent": _persistent_state(trainer),
     }
-    fname = os.path.join(path, f"ckpt_{rnd}.pkl")
     with open(fname, "wb") as f:
         pickle.dump(payload, f)
     return fname

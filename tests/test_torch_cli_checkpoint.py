@@ -137,7 +137,12 @@ def _cfg(**kw):
     ("batched_global", dict(batched_global="on")),
     # a window runs with host_stream only
     ("data.stream_window", dict(data=DataConfig(name="synthetic", stream_window=4))),
-    ("mesh", dict(mesh=MeshConfig(data_axis=2))),
+    # a mesh larger than the world (one process here); the other refusals
+    # of a mesh beside it (tests/test_torch_mesh.py runs the mesh)
+    pytest.param("mesh.data_axis", dict(mesh=MeshConfig(data_axis=2)), id="mesh-kw9"),
+    ("mesh.client_axis", dict(mesh=MeshConfig(client_axis=1))),
+    ("batch_size", dict(batch_size=15, mesh=MeshConfig(data_axis=2))),
+    ("hoist_augment", dict(hoist_augment=1, mesh=MeshConfig(data_axis=2))),
 ])
 def test_unported_config_values_raise_naming_the_field(field, kw):
     """No knob is accepted and ignored: a ``Config`` value the port has no
