@@ -126,11 +126,25 @@ first failure:
    client losses, and its gathered global variables beside one rank's; the
    data axis (1 client x 2 data shards, FedAVG on smallcnn) with equal bits
    on both ranks and within 1e-5 relative of the same run on the CPU.
+   Gates 4-6 at gate 1's geometry: FixMatch with ``pre_augment=256`` and
+   FedMLP with ``hoist_augment=1``, equal bits to one rank; each rank's
+   views made before the round equal, bit for bit, the slice of the whole
+   round's views made in one process from the same generator state.
    Then ``slice``'s geometry over the two ranks (10 clients each): a stage-1
    round that harvests, a stage-2 round and the evaluation, each rank's
    launches counted and summed into the path's, its round seconds and peak
-   memory beside ``slice``'s rounds 1 and 2. Last a one-rank NCCL group's
+   memory beside ``slice``'s rounds 1 and 2; and ``slice_mesh_preaug``,
+   FixMatch at ``slice_preaug``'s geometry over the two ranks, each making
+   its clients' views before the round, one round and the evaluation, the
+   ranks' global variables and metrics equal. Last a one-rank NCCL group's
    all-reduce and gather on the card.
+18b. cli_torchrun: ``cli``'s arguments plus ``--pre_augment 256`` in two
+   processes that ``python -m torch.distributed.run --standalone
+   --nproc_per_node 2`` starts on the card (each runs ``cli.main``, which
+   starts the group from the environment), beside the same arguments in a
+   group that ``parallel.mesh.launch`` starts: exit 0, rank 0's mesh line
+   (gloo), one output tree written by rank 0 alone, and the final
+   checkpoints' global variables equal bit for bit (cuDNN deterministic).
 19. profile, profile_strong, profile_convbn, time_b5b6, time_views,
    time_knobs, time_stream (only
    when asked for): where a stage-1 round's device time goes, for both depthwise
@@ -1965,6 +1979,8 @@ MESH_LOCKSTEP_VARS_REL_TOL = 1e-3
 # tests/test_torch_mesh.py). No one-rank run is the reference: as in JAX,
 # each data shard's batch norm takes the statistics of its own rows.
 MESH_DATA_REL_TOL = 1e-5
+# images a chunk of the views made before a round (``pre_augment``)
+PREAUG_CHUNK = 256
 
 
 def _digest(tree: dict) -> str:
@@ -2030,6 +2046,21 @@ def mesh_gates(dev) -> dict:
             runs["max_rel"] = _relative(runs["sharded"]["global_vars"],
                                         runs["solo"]["global_vars"])
         out["bits"] = runs
+        # views before the round, sharded: FixMatch's drawn ones made before
+        # the round, FedMLP's hoisted ones (gates 4 and 5)
+        for name, cfg, n_rounds in (
+                ("fixmatch_pre", strong_config("fixmatch", 3, 1, pre_augment=PREAUG_CHUNK,
+                                               compute_dtype="float32"), 1),
+                ("fedmlp_hoist", flagship_config(3, 3 * 64, rounds_stage1=1,
+                                                 compute_dtype="float32",
+                                                 hoist_augment=1), 2)):
+            tr = Trainer(cfg, device=dev)
+            runs = {"sharded": _mesh_run(tr, n_rounds)}
+            if rank == 0:
+                runs["solo"] = _mesh_run(_solo(Trainer)(cfg, device=dev), n_rounds)
+            out[name] = runs
+            if name == "fixmatch_pre":
+                out["views"] = {"equal": rank_views_are_slices(tr)}
     finally:
         torch.backends.cudnn.deterministic = deterministic
     cfg = flagship_config(4, 4 * 64, rounds_stage1=1, compute_dtype="float32",
@@ -2060,6 +2091,78 @@ def mesh_gates(dev) -> dict:
             if isinstance(run, dict):
                 run.pop("global_vars")
     return out
+
+
+def rank_views_are_slices(tr) -> bool:
+    """Whether this rank's views of a fresh round plan of ``tr`` (its block
+    of clients and rows, ``pre_augment_views`` with the block's place) are,
+    bit for bit, the slice at its block of the views of the whole round
+    made in this process from the same generator state."""
+    from fedmlp_tpu_torch.parallel import fl_runtime as rt
+
+    K, b = tr.n_clients, tr.cfg.batch_size
+    place = tr.round_mesh.place(K, b)
+    mine, rows = slice(place.clients.start, place.clients.stop), place.rows
+    pos, _, _ = rt.make_batch_plan(np.random.RandomState(0), tr.fd.valid.cpu().numpy(), b, 1)
+    data = tr.cfg.data
+    kw = dict(view_mode=tr.algo.VIEW_MODE, augment_backend=data.augment_backend,
+              mean=data.mean, std=data.std, chunk=PREAUG_CHUNK)
+    state = tr.generator.get_state()
+    whole = rt.pre_augment_views(rt.gather_round_images(tr.fd.images, tr.fd.idx, pos),
+                                 tr.generator, **kw)
+    tr.generator.set_state(state)
+    own = rt.pre_augment_views(
+        rt.gather_round_images(tr.fd.images, tr.fd.idx[mine], pos[:, mine, rows]),
+        tr.generator, place=place, **kw)
+    return all(torch.equal(own[n], whole[n][:, mine, rows]) for n in whole)
+
+
+def mesh_preaug(dev, card: str) -> dict:
+    """FixMatch at ``slice_preaug``'s geometry (K=20, B0, bf16, 224 px,
+    batch 32, ``pre_augment=256``) over the ranks: one round and the
+    evaluation, each rank making the views of its clients before the round
+    from the whole round's draws, with this rank's launch counts (reset just
+    before, read just after), round seconds and peak, and the launches its
+    clients imply and those of every rank's."""
+    from fedmlp_tpu_torch.parallel.mesh import Mesh, process_rank
+    from fedmlp_tpu_torch.train import Trainer
+
+    rank = process_rank()
+    tr = Trainer(strong_config("fixmatch", K, 1, pre_augment=PREAUG_CHUNK), device=dev)
+    valid = tr.fd.valid.cpu().numpy()
+    S = plan_steps(tr)
+
+    def expected(clients) -> dict:
+        # a chunk of the block's views: one warp launch (the weak view) and
+        # nine shear passes (the strong view); a step's loss: two masked BCE
+        # sums and their gradients; the evaluation: one normalize chunk
+        chunks = int(math.ceil(S * len(clients) * B / PREAUG_CHUNK))
+        steps = sum(int(math.ceil(valid[k].sum() / B)) for k in clients)
+        return {"fused_warp_normalize": chunks, "hshift_rows": 9 * chunks,
+                "bce_with_logits_masked_sum": 2 * steps,
+                "bce_with_logits_masked_grad": 2 * steps, "normalize_flip_cutout": 1}
+
+    blocks = [Mesh(MESH_RANKS, 1, r).client_block(tr.n_clients) for r in range(MESH_RANKS)]
+    mine = blocks[rank]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = tr.run_round(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"phase slice_mesh_preaug: rank {rank} round 0 (evaluation included) "
+          f"{seconds:.3f} s, clients {mine.start}-{mine.stop - 1}, peak {peak:.2f} GiB "
+          f"[{card}]", flush=True)
+    per_rank = [expected(b) for b in blocks]
+    finite = (all(math.isfinite(x) for x in rec.client_losses)
+              and bool(rec.metrics) and all(math.isfinite(v) for v in rec.metrics.values()))
+    return {"launches": launches, "seconds": seconds, "peak": peak, "finite": finite,
+            "clients": [mine.start, mine.stop], "expected_rank": per_rank[rank],
+            "expected_all": {n: sum(e[n] for e in per_rank) for n in per_rank[0]},
+            "metrics": rec.metrics, "vars": _digest(tr.global_vars)}
 
 
 def mesh_flagship(dev, card: str) -> dict:
@@ -2113,7 +2216,8 @@ def mesh_flagship(dev, card: str) -> dict:
 def mesh_rank(card: str) -> dict:
     """What every rank of ``slice_mesh``'s group runs."""
     dev = "cuda"  # card LOCAL_RANK modulo the cards: the one card
-    return {"gates": mesh_gates(dev), "flagship": mesh_flagship(dev, card)}
+    return {"gates": mesh_gates(dev), "flagship": mesh_flagship(dev, card),
+            "preaug": mesh_preaug(dev, card)}
 
 
 def nccl_check() -> dict:
@@ -2166,6 +2270,21 @@ def phase_slice_mesh(dev, card: str) -> dict:
           f"{data[0]['cuda']['losses']} CPU {data[0]['cpu']['losses']} [{card}]")
     if not (twins and data[0]["max_rel"] <= MESH_DATA_REL_TOL):
         raise SystemExit("slice_mesh: the data axis failed its gate")
+    for n, (name, what) in enumerate((
+            ("fixmatch_pre", f"FixMatch B0 224 px K=3 float32 pre_augment={PREAUG_CHUNK}"),
+            ("fedmlp_hoist", "FedMLP B0 224 px K=3 float32 hoist_augment=1")), 4):
+        runs = gates[0][name]
+        same = all(g[name]["sharded"] == runs["solo"] for g in gates)
+        print(f"phase slice_mesh: gate {n}, {what}, views drawn, 2 shards against 1: "
+              f"equal bits {same}, losses {runs['sharded']['losses']} [{card}]")
+        if not same:
+            raise SystemExit(f"slice_mesh: the sharded {name} run is not the one-rank run")
+    views = [g["views"]["equal"] for g in gates]
+    print(f"phase slice_mesh: gate 6, each rank's views made before the round (FixMatch "
+          f"K=3, chunk {PREAUG_CHUNK}) are the slice of the whole round's views made in "
+          f"one process from the same generator state: {views} [{card}]")
+    if not all(views):
+        raise SystemExit("slice_mesh: a rank's views are not the whole round's slice")
 
     flag = [r["flagship"] for r in ranks]
     for r, f in enumerate(flag):
@@ -2189,13 +2308,29 @@ def phase_slice_mesh(dev, card: str) -> dict:
             f"rank {r} {f['seconds'][rnd]:.3f} s peak {f['peaks'][rnd]:.2f} GiB"
             for r, f in enumerate(flag)) + f" beside {beside} [{card}]")
 
+    pre = [r["preaug"] for r in ranks]
+    for r, f in enumerate(pre):
+        check_launches(f"slice_mesh_preaug rank {r}", f["launches"], f["expected_rank"])
+        if not f["finite"]:
+            raise SystemExit(f"slice_mesh_preaug: rank {r} non-finite losses or metrics")
+        ROUND_SECONDS[f"slice_mesh_preaug_rank{r}"] = [f["seconds"]]
+        PEAK_GIB[f"slice_mesh_preaug_rank{r}"] = [f["peak"]]
+    if len({f["vars"] for f in pre}) != 1 or pre[0]["metrics"] != pre[1]["metrics"]:
+        raise SystemExit("slice_mesh_preaug: the ranks' global models or metrics differ")
+    summed_pre = {n: sum(f["launches"][n] for f in pre) for n in pre[0]["launches"]}
+    check_launches("slice_mesh_preaug", summed_pre, pre[0]["expected_all"])
+    print(f"phase slice_mesh_preaug: the ranks' global variables and metrics equal "
+          f"(digest {pre[0]['vars'][:16]}), global_test {json.dumps(pre[0]['metrics'])}; "
+          f"round " + ", ".join(f"rank {r} {f['seconds']:.3f} s peak {f['peak']:.2f} GiB"
+                                for r, f in enumerate(pre)) + f" [{card}]")
+
     nccl = launch(nccl_check, 1, device="cuda", timeout_s=120)[0]
     want = [float(v) for v in range(6)]
     print(f"phase slice_mesh: one-rank NCCL group: backend {nccl['backend']}, all-reduce "
           f"{nccl['reduced']}, gather {nccl['gathered']}")
     if nccl["backend"] != "nccl" or nccl["reduced"] != want or nccl["gathered"] != want:
         raise SystemExit("slice_mesh: the NCCL group failed its check")
-    return summed
+    return {"slice_mesh": summed, "slice_mesh_preaug": summed_pre}
 
 
 # the backbones of the models_zoo phase: (name, cosine head)
@@ -2308,7 +2443,7 @@ def strong_config(algorithm: str, n_clients: int, rounds: int, **kw):
         data=DataConfig(name="synthetic", n_classes=N_CLASSES, image_size=SIZE,
                         synthetic_train_size=n_clients * 4 * B,
                         synthetic_test_size=N_TEST),
-        compute_dtype="bfloat16", output_dir="", **kw)
+        **{"compute_dtype": "bfloat16", "output_dir": "", **kw})
 
 
 def run_rounds(path: str, card: str, tr, n_rounds: int) -> list:
@@ -2409,7 +2544,7 @@ def phase_slice_preaug(dev, card: str) -> dict:
     from fedmlp_tpu_torch.ops import augment
     from fedmlp_tpu_torch.parallel import fl_runtime as rt
 
-    chunk = 256
+    chunk = PREAUG_CHUNK
 
     def expected(tr):
         n_chunks = int(math.ceil(views_positions(tr) / chunk))
@@ -2671,6 +2806,25 @@ def _read_losses(metrics_path: str) -> dict:
     return {r: [v[c] for c in sorted(v)] for r, v in by_round.items()}
 
 
+CLI_CLIENTS, CLI_ROUNDS = 4, 2
+
+
+def cli_argv() -> list:
+    """The CLI's arguments of ``cli`` and ``cli_torchrun`` but the output
+    directory: FedAVG at the geometry of bench.py::_bench_fedavg (4 clients,
+    EfficientNet-B0, 224 px, batch 32, 5 classes, p_pos=1, bf16, synthetic,
+    128 images a client) with ``--dw_backend pallas``, 2 rounds, a
+    checkpoint after each, the last round evaluated."""
+    return ["--exp", "FedAVG", "--dataset", "synthetic", "--model", "efficient_b0",
+            "--n_clients", str(CLI_CLIENTS), "--n_classes", "5",
+            "--image_size", str(SIZE), "--batch_size", str(B), "--p_pos", "1",
+            "--base_lr", "3e-5", "--compute_dtype", "bfloat16",
+            "--synthetic_train_size", str(CLI_CLIENTS * 128),
+            "--synthetic_test_size", str(N_TEST), "--dw_backend", "pallas",
+            "--rounds", str(CLI_ROUNDS), "--checkpoint_every", "1",
+            "--eval_every", "1000000", "--seed", "1037", "--exp_tag", "smoke"]
+
+
 def phase_cli(dev, card: str) -> dict:
     """``fedmlp_tpu_torch.cli.main`` in-process on the card: FedAVG at the
     geometry of bench.py::_bench_fedavg (4 clients, EfficientNet-B0, 224 px,
@@ -2683,17 +2837,9 @@ def phase_cli(dev, card: str) -> dict:
 
     from fedmlp_tpu_torch import cli
 
-    n_clients, rounds = 4, 2
+    n_clients, rounds = CLI_CLIENTS, CLI_ROUNDS
     with tempfile.TemporaryDirectory() as out:
-        argv = ["--exp", "FedAVG", "--dataset", "synthetic", "--model", "efficient_b0",
-                "--n_clients", str(n_clients), "--n_classes", "5",
-                "--image_size", str(SIZE), "--batch_size", str(B), "--p_pos", "1",
-                "--base_lr", "3e-5", "--compute_dtype", "bfloat16",
-                "--synthetic_train_size", str(n_clients * 128),
-                "--synthetic_test_size", str(N_TEST), "--dw_backend", "pallas",
-                "--rounds", str(rounds), "--checkpoint_every", "1",
-                "--eval_every", "1000000", "--seed", "1037",
-                "--output_dir", out, "--exp_tag", "smoke"]
+        argv = cli_argv() + ["--output_dir", out]
         reset_launch_counts()
         t0 = time.perf_counter()
         cli.main(argv)
@@ -2732,6 +2878,142 @@ def phase_cli(dev, card: str) -> dict:
     if not diff <= 1e-3:
         raise SystemExit(f"cli: resumed round differs: {first[1]} vs {again[1]}")
     return launches
+
+
+# seconds the torchrun of cli_torchrun, and the launch beside it, may take
+CLI_TORCHRUN_TIMEOUT_S = 400
+
+
+def cli_child(counts_dir: str, argv: list) -> int:
+    """One process of ``cli_torchrun``'s ``torchrun`` (``chip_smoke.py
+    --cli-child DIR ARGV...``): cuDNN deterministic, the launch counts set
+    to 0, ``fedmlp_tpu_torch.cli.main(ARGV)`` (which starts the group from
+    the launcher's environment, ``init_from_env``), then this rank's counts
+    written to ``DIR/rank{RANK}.json``."""
+    import os
+
+    from fedmlp_tpu_torch import cli
+
+    torch.backends.cudnn.deterministic = True
+    reset_launch_counts()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    with open(os.path.join(counts_dir, f"rank{os.environ['RANK']}.json"), "w") as fh:
+        json.dump(read_launch_counts(), fh)
+    return 0
+
+
+def cli_launched_rank(argv: list, root: str) -> None:
+    """A rank of the group that ``launch`` starts (its ``FileStore``): cuDNN
+    deterministic, ``cli.main(argv)`` writing under ``root/rank{rank}``."""
+    import os
+
+    from fedmlp_tpu_torch import cli
+    from fedmlp_tpu_torch.parallel.mesh import process_rank
+
+    torch.backends.cudnn.deterministic = True
+    cli.main(argv + ["--output_dir", os.path.join(root, f"rank{process_rank()}")])
+
+
+def _ckpt_digest(path: str) -> str:
+    """``_digest`` of a checkpoint's global variables."""
+    import pickle
+
+    with open(path, "rb") as fh:
+        packed = pickle.load(fh)["global_vars"]
+    return _digest({n: v["__tensor__"] for n, v in packed.items()})
+
+
+def phase_cli_torchrun(dev, card: str) -> dict:
+    """The CLI started by ``torchrun`` on 2 processes sharing the card:
+    ``python -m torch.distributed.run --standalone --nproc_per_node 2
+    chip_smoke.py --cli-child ...`` runs ``cli.main`` on ``cli``'s
+    arguments plus ``--pre_augment 256`` in each (``cli_child``), the group
+    started from the environment (``env://``). Beside it, the same arguments
+    in a group that ``launch`` starts. Gates: exit 0; rank 0 printed the
+    mesh line with gloo; one output tree, written by rank 0 alone (each
+    checkpoint, metric record and log line once, rank 1 wrote no file);
+    the final checkpoint's global variables equal the launched group's bit
+    for bit (both with cuDNN deterministic); each rank's launches those its
+    two clients imply."""
+    import os
+    import signal
+    import tempfile
+
+    from fedmlp_tpu_torch.parallel.mesh import launch
+
+    argv = cli_argv() + ["--pre_augment", str(PREAUG_CHUNK)]
+    with tempfile.TemporaryDirectory() as tmp:
+        out, counts = os.path.join(tmp, "torchrun"), os.path.join(tmp, "counts")
+        os.makedirs(counts)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(MESH_RANKS), os.path.abspath(__file__),
+               "--cli-child", counts] + argv + ["--output_dir", out]
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "stdout"), "w") as so, \
+                open(os.path.join(tmp, "stderr"), "w") as se:
+            proc = subprocess.Popen(cmd, stdout=so, stderr=se, start_new_session=True)
+            try:
+                launch(cli_launched_rank, MESH_RANKS, (argv, os.path.join(tmp, "launched")),
+                       device="cuda", timeout_s=CLI_TORCHRUN_TIMEOUT_S)
+                rc = proc.wait(timeout=max(1.0, CLI_TORCHRUN_TIMEOUT_S
+                                           - (time.perf_counter() - t0)))
+            finally:
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        secs = time.perf_counter() - t0
+        with open(os.path.join(tmp, "stdout")) as fh:
+            stdout = fh.read()
+        with open(os.path.join(tmp, "stderr")) as fh:
+            stderr = fh.read()
+        print(f"phase cli_torchrun: torchrun exit {rc}, {secs:.1f} s with the launched "
+              f"group beside it [{card}]")
+        if rc != 0:
+            raise SystemExit(f"cli_torchrun: torchrun exited {rc}:\n{stdout[-3000:]}\n"
+                             f"{stderr[-3000:]}")
+        mesh_lines = [line for line in stdout.splitlines() if line.startswith("mesh: ")]
+        tree = os.path.join(out, "smoke")
+        files = sorted(os.path.relpath(os.path.join(d, f), tree)
+                       for d, _, fs in os.walk(tree) for f in fs)
+        with open(os.path.join(tree, "logs", "metrics.jsonl")) as fh:
+            keys = [(r["tag"], r["step"]) for r in map(json.loads, fh)]
+        with open(os.path.join(tree, "logs", "logs.txt")) as fh:
+            engine_lines = sum("engine: per-client loop" in line for line in fh)
+        ckpts = [f for f in files if f.startswith("models/")]
+        one_writer = (ckpts == [f"models/ckpt_{r}.pkl" for r in range(CLI_ROUNDS)]
+                      and sum("tfevents" in f for f in files) <= 1
+                      and len(keys) == len(set(keys)) and engine_lines == 1)
+        final = f"ckpt_{CLI_ROUNDS - 1}.pkl"
+        got = _ckpt_digest(os.path.join(tree, "models", final))
+        want = _ckpt_digest(os.path.join(tmp, "launched", "rank0", "smoke", "models", final))
+        launched_rank1 = os.path.exists(os.path.join(tmp, "launched", "rank1"))
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(counts, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    print(f"phase cli_torchrun: mesh line {mesh_lines}; one output tree {files}, "
+          f"{len(keys)} metric records, each once, one writer {one_writer}; the launched "
+          f"group's rank 1 wrote nothing {not launched_rank1} [{card}]")
+    print(f"phase cli_torchrun: final checkpoint global variables {got[:16]}, the launched "
+          f"group's {want[:16]}: equal bits {got == want} [{card}]")
+    if mesh_lines != [f"mesh: {MESH_RANKS} processes, backend gloo (gloo on the CPU or "
+                      "when ranks share a card, NCCL with a card a rank)"]:
+        raise SystemExit(f"cli_torchrun: mesh lines {mesh_lines}")
+    if not one_writer or launched_rank1:
+        raise SystemExit(f"cli_torchrun: output written by more than rank 0: {files}")
+    if got != want:
+        raise SystemExit("cli_torchrun: the torchrun run's final global variables differ "
+                         "from the launched group's")
+    # a rank's 2 clients: 128 images each, so its 256 view positions a
+    # round are one chunk of the weak view; 16 depthwise layers a step;
+    # the last round's evaluation, one normalize chunk a rank
+    steps = CLI_CLIENTS // MESH_RANKS * (128 // B) * CLI_ROUNDS
+    for r, got_r in enumerate(ranks):
+        check_launches(f"cli_torchrun rank {r}", got_r, {
+            "fused_warp_normalize": CLI_ROUNDS, "dw_dgrad": 16 * steps,
+            "dw_wgrad": 16 * steps, "normalize_flip_cutout": 1})
+    return {n: sum(c[n] for c in ranks) for n in ranks[0]}
 
 
 _KERNEL_KINDS = (
@@ -2958,6 +3240,11 @@ _PATH_KERNELS = {
                      "bce_with_logits_masked_grad", "normalize_flip_cutout"),
     "slice_stream": ("fused_warp_normalize", "normalize_flip_cutout"),
     "slice_mesh": ("fused_warp_normalize", "normalize_flip_cutout"),
+    "slice_mesh_preaug": ("fused_warp_normalize", "hshift_rows",
+                          "bce_with_logits_masked_sum", "bce_with_logits_masked_grad",
+                          "normalize_flip_cutout"),
+    "cli_torchrun": ("fused_warp_normalize", "dw_dgrad", "dw_wgrad",
+                     "normalize_flip_cutout"),
     **{path: ("fused_warp_normalize",) for path, _ in KNOBS},
 }
 
@@ -3099,15 +3386,20 @@ def phase_profile_convbn(dev, card: str) -> None:
 def main(argv=None) -> int:
     import fedmlp_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--cli-child"]:  # a process of cli_torchrun's torchrun
+        return cli_child(argv[1], argv[2:])
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="build,kernel,slice,slice_mesh,slice_lockstep,"
-                                        "slice_stacked,slice_dw,cli,slice_strong,"
+                                        "slice_stacked,slice_dw,cli,cli_torchrun,"
+                                        "slice_strong,"
                                         "probe_convbn,slice_fednoro,slice_baselines,"
                                         "slice_resnet18,models_zoo,slice_views,"
                                         "slice_preaug,slice_knobs,slice_stream",
                     help="comma list of build,kernel,slice,slice_mesh,slice_lockstep,"
                          "slice_stacked,"
-                         "slice_dw,cli,slice_strong,probe_convbn,slice_fednoro,"
+                         "slice_dw,cli,cli_torchrun,slice_strong,probe_convbn,"
+                         "slice_fednoro,"
                          "slice_baselines,slice_resnet18,models_zoo,slice_views,"
                          "slice_preaug,slice_knobs,slice_stream,profile,profile_strong,"
                          "profile_convbn,time_b5b6,time_views,time_knobs,time_stream")
@@ -3134,7 +3426,7 @@ def main(argv=None) -> int:
     if "slice" in phases:
         by_path["slice"] = phase_slice(dev, card)
     if "slice_mesh" in phases:
-        by_path["slice_mesh"] = phase_slice_mesh(dev, card)
+        by_path.update(phase_slice_mesh(dev, card))
     if "slice_lockstep" in phases:
         by_path["slice_lockstep"] = phase_slice_lockstep(dev, card)
     if "slice_stacked" in phases:
@@ -3143,6 +3435,8 @@ def main(argv=None) -> int:
         by_path["slice_dw"] = phase_slice_dw(dev, card)
     if "cli" in phases:
         by_path["cli"] = phase_cli(dev, card)
+    if "cli_torchrun" in phases:
+        by_path["cli_torchrun"] = phase_cli_torchrun(dev, card)
     if "slice_strong" in phases:
         by_path.update(phase_slice_strong(dev, card))
     if "probe_convbn" in phases:

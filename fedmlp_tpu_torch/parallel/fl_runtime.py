@@ -45,7 +45,7 @@ from fedmlp_tpu_torch.data.masking import (
     observed_targets,
 )
 from fedmlp_tpu_torch.ops import augment as A
-from fedmlp_tpu_torch.parallel.mesh import pad_clients
+from fedmlp_tpu_torch.parallel.mesh import Place, pad_clients
 from fedmlp_tpu_torch.parallel.streaming import TableImages, open_round_images
 
 
@@ -182,26 +182,44 @@ def gather_round_images(images: torch.Tensor, idx: torch.Tensor, pos) -> torch.T
 
 
 def pre_augment_views(imgs: torch.Tensor, generator: torch.Generator, *, view_mode: str,
-                      augment_backend: str, mean, std, chunk: int = 256) -> dict:
-    """Every view of a round, made before its first step: imgs u8
-    [S, K, B, H, W, 3] → {'x'} (view_mode 'single') or {'x1', 'x2'} ('dual':
-    two weak views; 'weak_strong': a weak and a strong one), f32
-    [S, K, B, 3, H, W], for every plan position, padding included.
+                      augment_backend: str, mean, std, chunk: int = 256,
+                      place: Place | None = None) -> dict:
+    """Every view of a round, or of a block of it, made before its first
+    step: imgs u8 [S, Kr, Br, H, W, 3] → {'x'} (view_mode 'single') or
+    {'x1', 'x2'} ('dual': two weak views; 'weak_strong': a weak and a strong
+    one), f32 [S, Kr, Br, 3, H, W], for every plan position the images
+    hold, padding included.
 
-    All N = S·K·B images' draws come first (the weak draws of 'x' or 'x1',
-    then those of 'x2'), then the views are made ``chunk`` images at a time
-    from them, so the result does not depend on ``chunk``: the same bits as
-    one call over all N, which is what ``make_local_round``'s hoist makes.
-    (The JAX package derives the same per-image key tables for every chunk
-    and pads the last one to keep one compiled shape; nothing here needs
-    padding.)"""
+    The images are the block ``place`` of the round (a mesh rank's clients
+    and rows, ``Mesh.place``; by default the whole round, Kr = K and
+    Br = B). All N = S·K·B
+    images' draws of the WHOLE round come first, the same calls in the same
+    order whatever the block (the weak draws of 'x' or 'x1', then those of
+    'x2'; every draw is indexed by image on its last axis); then the views
+    of the block's positions are made ``chunk`` images at a time from their
+    draws. So a block's views are the matching slice of the whole round's,
+    and the result does not depend on ``chunk``: the same bits as one call
+    over all N, which is what ``make_local_round``'s hoist makes. (The JAX
+    package derives the same per-image key tables for every chunk and pads
+    the last one to keep one compiled shape; nothing here needs padding.)"""
     if view_mode not in ("single", "dual", "weak_strong"):
         raise ValueError(f"unknown view_mode {view_mode!r}")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    S, K, B, H, W = imgs.shape[:5]
-    N = S * K * B
-    flat = imgs.reshape((N,) + imgs.shape[3:])
+    S, Kr, Br, H, W = imgs.shape[:5]
+    place = place or Place(Kr, range(Kr), Br, slice(None))
+    K, B, clients = place.n_clients, place.batch_size, place.clients
+    rows = range(B)[place.rows]
+    if (len(clients), len(rows)) != (Kr, Br) or clients.stop > K or rows.stop > B:
+        raise ValueError(f"images of {Kr} clients x {Br} rows are not clients "
+                         f"{clients} of {K} and rows {rows} of {B}")
+    N, Nr = S * K * B, S * Kr * Br
+    mine = None  # the block's flat positions in the round, None for all of it
+    if Nr != N:
+        mine = (torch.arange(S, device=imgs.device)[:, None, None] * (K * B)
+                + torch.arange(clients.start, clients.stop, device=imgs.device)[:, None] * B
+                + torch.arange(rows.start, rows.stop, device=imgs.device)).reshape(-1)
+    flat = imgs.reshape((Nr,) + imgs.shape[3:])
     kinds = {"single": {"x": "weak"}, "dual": {"x1": "weak", "x2": "weak"},
              "weak_strong": {"x1": "weak", "x2": "strong"}}[view_mode]
     backends = {name: A.view_backend(augment_backend, kind) for name, kind in kinds.items()}
@@ -209,11 +227,15 @@ def pre_augment_views(imgs: torch.Tensor, generator: torch.Generator, *, view_mo
              for name, (draw, _) in backends.items()}
     views = {}
     for name, (_, apply) in backends.items():
-        parts = [apply(flat[c:c + chunk],
-                       {n: t[..., c:c + chunk] for n, t in draws[name].items()}, mean, std)
-                 for c in range(0, N, chunk)]
+        own = {n: t if mine is None else t[..., mine] for n, t in draws[name].items()}
+        parts = [apply(flat[c:c + chunk], {n: t[..., c:c + chunk] for n, t in own.items()},
+                       mean, std)
+                 for c in range(0, Nr, chunk)]
+        if not parts:  # a rank whose block holds no client
+            views[name] = torch.empty((S, Kr, Br, 3, H, W), device=imgs.device)
+            continue
         v = parts[0] if len(parts) == 1 else torch.cat(parts)
-        views[name] = v.reshape((S, K, B) + v.shape[1:])
+        views[name] = v.reshape((S, Kr, Br) + v.shape[1:])
     return views
 
 
@@ -240,14 +262,23 @@ def _step_setup(data, plan, compute_dtype, needs_global, global_model, global_va
 
 def _round_views(plan, hoist_augment: bool, n_views: int, src, pos_d, generator,
                  **kw):
-    """The views a round brings (``plan['views']``) or, with
-    ``hoist_augment`` and at most ``HOIST_MAX_VIEWS`` view images, all of
-    them made now from the round's images ``src.whole()`` in one
-    ``pre_augment_views`` call; else None (the steps make their own)."""
+    """The views a round brings (``plan['views']``, of the plan's clients
+    and rows) or, with ``hoist_augment`` and at most ``HOIST_MAX_VIEWS``
+    view images in the WHOLE round (``plan['place']`` under a mesh: JAX
+    decides on the global shape), those of the plan's positions made now
+    from ``src.whole()`` in one ``pre_augment_views`` call; else None (the
+    steps make their own)."""
     made = plan.get("views")
-    S, K, B = pos_d.shape
+    S, Kr, Br = pos_d.shape
+    place = plan.get("place")
+    if made is not None and tuple(next(iter(made.values())).shape[:3]) != (S, Kr, Br):
+        raise ValueError(f"views made before the round hold positions "
+                         f"{tuple(next(iter(made.values())).shape[:3])}, the plan "
+                         f"{(S, Kr, Br)}: under a mesh they are the rank's block")
+    K, B = (place.n_clients, place.batch_size) if place else (Kr, Br)
     if made is None and hoist_augment and S * K * B * n_views <= HOIST_MAX_VIEWS:
-        made = pre_augment_views(src.whole(), generator, chunk=S * K * B, **kw)
+        made = pre_augment_views(src.whole(), generator, chunk=max(S * Kr * Br, 1),
+                                 place=place, **kw)
     return made
 
 
@@ -303,17 +334,20 @@ def client_generators(generator: torch.Generator, n_clients: int, device,
         (s + data_rank * _DATA_SEED_STRIDE) % 2**64) for s in seeds]
 
 
-def _local_part(data: dict, plan: dict, extra_state: dict, clients: range, rows: slice):
-    """(data, plan, extra_state) of the clients ``clients`` and the batch
-    rows ``rows`` of every step, client indices counted from the block's
+def _local_part(data: dict, plan: dict, extra_state: dict, place: Place):
+    """(data, plan, extra_state) of the block ``place``: its clients and its
+    batch rows of every step, client indices counted from the block's
     first. ``plan['live']`` [S, n] keeps whether each step of each client
-    is a real one, from its whole batch. A ``RoundStream`` in ``data``
-    holds these clients and rows already (``Trainer.local_pass``)."""
-    sl = slice(clients.start, clients.stop)
+    is a real one, from its whole batch; ``plan['place']`` is ``place``
+    (for ``pre_augment_views``). A ``RoundStream``
+    in ``data``, and views made before the round (``plan['views']``), hold
+    these clients and rows already (``Trainer.local_pass``)."""
+    sl, rows = slice(place.clients.start, place.clients.stop), place.rows
     data = {**data, "idx": data["idx"][sl], "ctx": {n: v[sl] for n, v in data["ctx"].items()}}
     pos_valid = plan["pos_valid"][:, sl]
     plan = {**plan, "pos": plan["pos"][:, sl, rows], "pos_valid": pos_valid[:, :, rows],
-            "live": pos_valid.any(2), "sample": {n: t[sl] for n, t in plan["sample"].items()}}
+            "live": pos_valid.any(2), "sample": {n: t[sl] for n, t in plan["sample"].items()},
+            "place": place}
     extra_state = {name: {n: v[sl] for n, v in part.items()}
                    for name, part in extra_state.items()}
     return data, plan, extra_state
@@ -408,8 +442,9 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     Views are made in the step from the step's images, unless the plan
     brings them, or ``hoist_augment`` is set and the round has at most
     ``HOIST_MAX_VIEWS`` view images: then the round first makes all of them
-    with ``pre_augment_views`` (one call, its draws before any step's), and
-    step s of client k reads entry [s, k].
+    with ``pre_augment_views`` (one call, its draws before any step's; under
+    a mesh the count is the whole round's and the rank makes its block's),
+    and step s of client k reads entry [s, k].
 
     ``round_fn(global_vars, data, plan, scalars, generator, extra_state)``
     takes
@@ -442,9 +477,10 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     statistics and the loss after the step, the aux sums summed, and a step
     is a no-op when its whole batch is padding (JAX's ``pmean``, ``psum``
     and ``pmax(has_any)``); ``post_step`` is refused there, as in JAX.
-    ``hoist_augment`` and views made before the round are refused under any
-    mesh of more than one rank: a rank holds its own clients' and rows'
-    images.
+    Views made before the round come as the rank's block (``Trainer.
+    local_pass``); ``hoist_augment`` makes the block's views from the whole
+    round's draws, after the K seed draws, and is refused over data shards,
+    where JAX drops it.
     """
     if teacher_scope not in ("all", "params"):
         raise ValueError(f"unknown teacher_scope {teacher_scope!r}")
@@ -452,8 +488,9 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     if split_batch and post_step is not None:
         raise ValueError("a round over data shards takes no post_step: its per-client "
                          "state would differ between shards")
-    if mesh is not None and mesh.size > 1 and hoist_augment:
-        raise ValueError("hoist_augment is refused under a mesh of more than one rank")
+    if split_batch and hoist_augment:
+        raise ValueError("hoist_augment is refused over data shards: the JAX package "
+                         "drops it there (fedmlp_tpu/parallel/fl_runtime.py:723)")
     has_teacher = teacher_decay is not None
     augment_views = _view_maker(view_mode, augment_backend, mean, std)
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
@@ -587,15 +624,13 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         if mesh is None:
             return run_clients(global_vars, data, plan, scalars, generator, None,
                                extra_state)
-        if plan.get("views") is not None and mesh.size > 1:
-            raise ValueError("views made before the round are refused under a mesh of "
-                             "more than one rank")
         _, K, B = plan["pos"].shape
-        block = mesh.client_block(K)
+        place = mesh.place(K, B)
         gens = client_generators(generator, K, data["idx"].device, mesh.data_rank)
-        parts = _local_part(data, plan, extra_state, block, mesh.data_rows(B))
+        parts = _local_part(data, plan, extra_state, place)
         out, losses, aux = run_clients(global_vars, parts[0], parts[1], scalars, generator,
-                                       gens[block.start:block.stop], parts[2])
+                                       gens[place.clients.start:place.clients.stop],
+                                       parts[2])
         return _gathered(mesh, K, out, losses, aux)
 
     return round_fn
@@ -660,11 +695,10 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
                              "carries no teacher or per-client state")
         if mesh is None:
             return run_lockstep(global_vars, data, plan, scalars, generator)
-        K = plan["pos"].shape[1]
-        block = mesh.client_block(K)
+        _, K, B = plan["pos"].shape
         gen = client_generators(generator, mesh.client_shards,
                                 data["idx"].device)[mesh.client_rank]
-        data, plan, _ = _local_part(data, plan, {}, block, slice(None))
+        data, plan, _ = _local_part(data, plan, {}, mesh.place(K, B))
         return _gathered(mesh, K, *run_lockstep(global_vars, data, plan, scalars, gen))
 
     def run_lockstep(global_vars, data, plan, scalars, generator):

@@ -25,6 +25,7 @@ raises.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import math
 import os
@@ -103,6 +104,17 @@ def rank_guard():
         raise
 
 
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """Where a block of a round sits in it: the clients ``clients`` of
+    ``n_clients`` and the rows ``rows`` of each step's ``batch_size``."""
+
+    n_clients: int
+    clients: range
+    batch_size: int
+    rows: slice
+
+
 class Mesh:
     """This process's place in a ``client_shards`` × ``data_shards`` mesh
     and the collectives the engines need. A mesh of one rank has no group:
@@ -149,6 +161,12 @@ class Mesh:
                              f"{self.data_shards} data shards")
         b = batch_size // self.data_shards
         return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def place(self, n_clients: int, batch_size: int) -> Place:
+        """This rank's block of a round of ``n_clients`` clients at
+        ``batch_size``: its clients and its rows of every step."""
+        return Place(n_clients, self.client_block(n_clients), batch_size,
+                     self.data_rows(batch_size))
 
     # --------------------------------------------------------- collectives
     @staticmethod

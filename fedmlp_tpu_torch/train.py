@@ -87,7 +87,8 @@ def check_ported(cfg: Config, world: Optional[int] = None) -> None:
     ``data.stream_window`` run as there; left is ``param_dtype`` (float32
     only; the JAX package reads it nowhere). The mesh is checked against a
     world of ``world`` processes (default: the process group's, 1 outside
-    one; ``_mesh_refusals``). ``scan_unroll``, ``client_unroll``,
+    one; ``_mesh_refusals``: what JAX refuses, and ``hoist_augment`` over
+    data shards, which JAX drops). ``scan_unroll``, ``client_unroll``,
     ``small_pack`` and, where no lockstep engine runs the one-forward loss,
     ``view_precat`` only shape the JAX package's XLA program and are the
     identity here."""
@@ -185,7 +186,10 @@ def _mesh_refusals(cfg: Config, world: int) -> list:
     """What a mesh of world / D client shards × D = ``mesh.data_axis`` data
     shards cannot run: the JAX package's refusals (``fedmlp_tpu/train.py:
     313-332``, ``:341-366``, ``:400-415``), and where it degrades silently
-    the port's own (no knob is accepted and then ignored)."""
+    the port's own (no knob is accepted and then ignored). Views made before
+    the round and, on the client axis alone, ``hoist_augment`` run sharded;
+    a ``batch_size`` that D does not divide runs the rounds unsharded
+    (``Trainer.round_mesh``), as in JAX."""
     m = cfg.mesh
     D = max(1, m.data_axis)
     C = max(1, world // D)
@@ -198,9 +202,6 @@ def _mesh_refusals(cfg: Config, world: int) -> list:
         bad.append(f"mesh.data_axis={m.data_axis} is refused: the mesh needs "
                    f"{C * D} processes, the world has {world}")
     if D > 1:
-        if cfg.batch_size % D:
-            bad.append(f"batch_size={cfg.batch_size} with mesh.data_axis={D} is refused: "
-                       "a data shard takes batch_size/data_axis rows of each step")
         if hasattr(algo_registry.get_algorithm(cfg.algorithm), "post_step"):
             bad.append(f"algorithm={cfg.algorithm!r} with mesh.data_axis={D} is refused: "
                        "its per-client state (post_step) would differ between data "
@@ -213,15 +214,13 @@ def _mesh_refusals(cfg: Config, world: int) -> list:
             bad.append(f"client_stacking='on' with a mesh of {C} client x "
                        f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: "
                        "the stacked engine runs on one process")
-        if cfg.hoist_augment:
-            bad.append(f"hoist_augment={cfg.hoist_augment} with a mesh of {C} client x "
-                       f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: a "
-                       "rank holds its own clients' and rows' images, the hoisted "
-                       "round's draws are made over all of them")
-        if cfg.pre_augment > 0:
-            bad.append(f"pre_augment={cfg.pre_augment} with a mesh of {C} client x "
-                       f"{D} data shards (mesh.data_axis={m.data_axis}) is refused: "
-                       "views made before the round need the whole round's images")
+    if D > 1 and cfg.hoist_augment and cfg.batch_size % D == 0:
+        # where the data shards split the batch, JAX turns the hoist off
+        # without a word (fedmlp_tpu/parallel/fl_runtime.py:723); no knob is
+        # accepted and then ignored. An undivided batch runs unsharded, the
+        # hoist included, as in JAX
+        bad.append(f"hoist_augment={cfg.hoist_augment} with mesh.data_axis={D} is "
+                   "refused: the JAX package drops the hoist over data shards")
     return bad
 
 
@@ -275,6 +274,10 @@ class Trainer:
             torch.backends.cudnn.allow_tf32 = False
         self.mesh = (make_mesh(data_shards=max(1, cfg.mesh.data_axis), device=self.device)
                      if self.use_mesh else None)
+        if self.mesh is not None and cfg.batch_size % self.mesh.data_shards:
+            log.warning("mesh: batch_size=%d does not split over mesh.data_axis=%d data "
+                        "shards: every rank runs the whole round, unsharded (as the JAX "
+                        "package)", cfg.batch_size, self.mesh.data_shards)
         self.rng = np.random.RandomState(cfg.seed)
         if self.train_ds is None:
             self.train_ds = make_synthetic_dataset(
@@ -436,9 +439,14 @@ class Trainer:
 
     @property
     def round_mesh(self):
-        """The mesh the rounds shard over, or None on one process (the JAX
-        ``Trainer``'s ``round_mesh``)."""
-        return self.mesh if self.mesh is not None and self.mesh.size > 1 else None
+        """The mesh the rounds shard over, or None on one process and when
+        the data shards do not divide ``batch_size``: then every rank runs
+        the whole round, as a run without a mesh (the JAX ``Trainer``'s
+        ``round_mesh``)."""
+        m = self.mesh
+        if m is None or m.size == 1 or self.cfg.batch_size % m.data_shards:
+            return None
+        return m
 
     def _build_model(self):
         """An uninitialized module of ``cfg.model``: the one place the
@@ -519,32 +527,34 @@ class Trainer:
         are made before the round, ``pre_augment`` images at a time. With
         ``host_stream`` the round's images come from the loader
         (``RoundStream``: at once, or in windows of ``stream_window``
-        steps); under a mesh the rank streams only its clients' rows of its
-        data shard."""
+        steps). Under a mesh the rank streams, and makes views of, only its
+        clients' rows of its data shard."""
         cfg = self.cfg
         pos, pos_valid, _ = rt.make_batch_plan(
             self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
+        # the rank's clients and rows: what it streams and makes views of
+        mine, rows, place = slice(None), slice(None), None
+        if self.round_mesh is not None:
+            place = self.round_mesh.place(self.n_clients, cfg.batch_size)
+            mine, rows = slice(place.clients.start, place.clients.stop), place.rows
         images = self.fd.images
         if self.loader is not None:
             gidx = self._idx_host[np.arange(self.n_clients)[None, :, None], pos]
-            live = pos_valid
-            mesh = self.round_mesh
-            if mesh is not None:
-                block = mesh.client_block(self.n_clients)
-                mine = slice(block.start, block.stop)
-                gidx, live = gidx[:, mine, mesh.data_rows(cfg.batch_size)], pos_valid[:, mine]
-            images = RoundStream(self.loader, gidx, live, cfg.data.stream_window,
-                                 self.device)
+            images = RoundStream(self.loader, gidx[:, mine, rows], pos_valid[:, mine],
+                                 cfg.data.stream_window, self.device)
         data = {"images": images, "idx": self.fd.idx, "ctx": self.client_ctx()}
         plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
                 "iter0": self.iter_num}
         if self._pre_augment_chunk:
-            whole = (images.open("client").whole() if self.loader is not None
-                     else rt.gather_round_images(images, self.fd.idx, pos))
+            # the draws of the whole round's views, the same on every rank,
+            # come off the generator before the round's K client seeds
+            # (rt.client_generators); a rank makes its block's views
+            own = (images.open("client").whole() if self.loader is not None
+                   else rt.gather_round_images(images, self.fd.idx[mine], pos[:, mine, rows]))
             plan["views"] = rt.pre_augment_views(
-                whole, self.generator, view_mode=self.algo.VIEW_MODE,
+                own, self.generator, view_mode=self.algo.VIEW_MODE,
                 augment_backend=cfg.data.augment_backend, mean=cfg.data.mean,
-                std=cfg.data.std, chunk=self._pre_augment_chunk)
+                std=cfg.data.std, chunk=self._pre_augment_chunk, place=place)
         out = round_fn(self.global_vars, data, plan, scalars, self.generator,
                        extra_state)
         if self.loader is not None:

@@ -31,6 +31,7 @@ from fedmlp_tpu_torch.models import senet as TSE
 from fedmlp_tpu_torch.weights import (from_jax_variables, leaf_from_jax,
                                       to_jax_variables)
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_variables import SHAPE_KEY, flax_shapes, numpy_variables
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 from convert_torch_weights import _STAGES, convert_resnet, flatten  # noqa: E402
@@ -218,9 +219,7 @@ def test_senet154_stem_matches_jax(size, train):
 def _shapes(name, normed_head=False):
     """flax's variables of ``name`` at 32 px, traced by shape only (once a
     process: the layout and round-trip tests share them)."""
-    jm = _flax(name, normed_head=normed_head)
-    return jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
-                                          jnp.zeros((1, 32, 32, 3)), train=False))
+    return flax_shapes(_flax(name, normed_head=normed_head), 32, train=False)
 
 
 @pytest.mark.parametrize("name", sorted(JF.MODEL_REGISTRY))
@@ -284,7 +283,7 @@ _ROUND_TRIP = {
     "vgg11": (lambda: _shapes("vgg11"), lambda: TF.build_model("vgg11", C, image_size=32)),
     "dense121": (lambda: _shapes("dense121"), lambda: TF.build_model("dense121", C)),
     "senet154_block": (
-        lambda: jax.eval_shape(lambda: _jax_block().init(jax.random.PRNGKey(0),
+        lambda: jax.eval_shape(lambda: _jax_block().init(SHAPE_KEY(),
                                                          jnp.zeros((1, 8, 8, 128)))),
         lambda: TSE.SEBottleneck154(128, 64, 2, downsample_kernel=3)),
 }
@@ -366,9 +365,11 @@ def test_load_pretrained_matches_jax(tmp_path):
     npz = tmp_path / "w.npz"
     np.savez(npz, **flatten(convert_resnet(st, _STAGES["resnet18"])))
 
-    jv = JF.init_model(_flax("resnet18"), jax.random.PRNGKey(0), 32)
-    merged, j_loaded, j_missing = JF.load_pretrained(jv, str(npz))
     tm = TF.init_model(TF.build_model("Resnet18", C), seed=0)
+    # the flax tree it loads into, drawn with numpy in flax's shapes; the
+    # head it keeps is copied into the port below
+    jv = numpy_variables(_shapes("resnet18"), 0)
+    merged, j_loaded, j_missing = JF.load_pretrained(jv, str(npz))
     t_loaded, t_missing = TF.load_pretrained(tm, str(npz))
     assert t_loaded == j_loaded >= 100
     assert t_missing == j_missing == ["params/head/fc/bias", "params/head/fc/kernel"]

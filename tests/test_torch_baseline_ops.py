@@ -92,13 +92,20 @@ def test_rofl_centroid_update_matches_jax():
     assert np.array_equal(got[2], f_k[2])
 
 
+@functools.lru_cache(maxsize=None)
+def _smallcnn_init(key: int) -> dict:
+    """flax's ``smallcnn`` variables from PRNGKey(``key``), jitted, once a
+    process (the tests only read them)."""
+    jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, IMG, IMG, 3)), train=False))(
+        jax.random.PRNGKey(key))
+    return jax.tree_util.tree_map(np.asarray, v)
+
+
 def _client_trees(n_clients, seed=0):
     """``smallcnn`` variables of ``n_clients`` clients: JAX's initial weights
     plus client-specific noise, stacked [K, ...] on both sides."""
-    jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
-    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0),
-                                                   jnp.zeros((1, IMG, IMG, 3)),
-                                                   train=False))
+    v = _smallcnn_init(0)
     rs = np.random.RandomState(seed)
     per = [jax.tree_util.tree_map(
         lambda a, s=0.01 * (1 + k): (a + s * rs.randn(*a.shape)).astype(np.float32), v)
@@ -211,12 +218,7 @@ def test_engine_teacher_matches_jax(monkeypatch, scope, decay, corrected):
     K = len(users)
     jfd, tfd, jctx, tctx = _federation(users)
     jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
-
-    def init(seed):
-        return jax.tree_util.tree_map(np.asarray, jm.init(
-            jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)), train=False))
-
-    v, tv = init(0), init(1)
+    v, tv = _smallcnn_init(0), _smallcnn_init(1)
     tv = dict(tv, batch_stats=jax.tree_util.tree_map(
         lambda a: a + 0.1 * np.random.RandomState(4).rand(*a.shape).astype(np.float32),
         tv["batch_stats"]))

@@ -141,7 +141,10 @@ def _cfg(**kw):
     # of a mesh beside it (tests/test_torch_mesh.py runs the mesh)
     pytest.param("mesh.data_axis", dict(mesh=MeshConfig(data_axis=2)), id="mesh-kw9"),
     ("mesh.client_axis", dict(mesh=MeshConfig(client_axis=1))),
-    ("batch_size", dict(batch_size=15, mesh=MeshConfig(data_axis=2))),
+    # a batch the data axis does not divide runs unsharded in a world of 2
+    # (tests/test_torch_mesh.py); in this world of 1 the mesh is refused
+    pytest.param("mesh.data_axis", dict(batch_size=15, mesh=MeshConfig(data_axis=2)),
+                 id="batch_size-kw11"),
     ("hoist_augment", dict(hoist_augment=1, mesh=MeshConfig(data_axis=2))),
 ])
 def test_unported_config_values_raise_naming_the_field(field, kw):

@@ -21,8 +21,9 @@ from fedmlp_tpu_torch.models import build_model, init_model
 from fedmlp_tpu_torch.models.efficientnet import DW_BACKENDS
 from fedmlp_tpu_torch.ops import depthwise as TD
 from fedmlp_tpu_torch.ops import dw_conv as TC
-from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from fedmlp_tpu_torch.weights import from_jax_variables
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_variables import flax_shapes, numpy_variables
 
 # (port function, JAX function) of each backend
 _OPS = {
@@ -142,21 +143,16 @@ def test_dense_channel_cap_reads_the_environment(monkeypatch, cap, want):
             if isinstance(getattr(m, n).dw_conv, TD.DepthwiseDense)} == want
 
 
-@pytest.mark.parametrize("backend", ["taps", "dense", "reroute"])
-def test_b0_backend_matches_jax_b0(backend):
-    """EfficientNet-B0 at 32 px, batch 2, float32, loss Σ logits², with the
-    port's initial weights handed to flax through weights.py: logits and
-    every parameter gradient against flax's B0 with the same backend,
-    within 1e-4 of the largest magnitude of each. Batch norm runs on its
-    running statistics (eval mode): in train mode the last stages at 1x1
-    normalize over 2 values a channel, where both frameworks' float32
-    rounding is amplified past any fixed tolerance (see
-    tests/test_torch_backbones.py); the depthwise forward and backward are
-    the same either way."""
-    tm = init_model(build_model("efficient_b0", 3, dw_backend=backend), 1)
-    v = to_jax_variables(tm.state_dict())
+@pytest.fixture(scope="module")
+def flax_b0():
+    """flax's EfficientNet-B0 with the exact depthwise convolution
+    (``dw_backend='conv'``) at 32 px, batch 2, float32, loss Σ logits²:
+    the weights (drawn with numpy in flax's shapes, tests/torch_variables.py),
+    the input, the logits and every parameter gradient, computed once a
+    module for the three backends."""
+    jm = j_b0(3, dtype=jnp.float32, dw_backend="conv")
+    v = numpy_variables(flax_shapes(jm, 32, train=False), 1)
     x = np.random.RandomState(3).randn(2, 32, 32, 3).astype(np.float32)
-    jm = j_b0(3, dtype=jnp.float32, dw_backend=backend)
 
     def jloss(params):
         _, logits = jm.apply({"params": params, "batch_stats": v["batch_stats"]}, x,
@@ -165,9 +161,27 @@ def test_b0_backend_matches_jax_b0(backend):
 
     (_, jlogits), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(v["params"])
     want = from_jax_variables({"params": jax.tree_util.tree_map(np.asarray, jgrads)})
+    return v, x, np.asarray(jlogits), want
+
+
+@pytest.mark.parametrize("backend", ["taps", "dense", "reroute"])
+def test_b0_backend_matches_jax_b0(flax_b0, backend):
+    """The port's B0 with each backend against flax's B0 with the exact
+    depthwise convolution (``flax_b0``), the same weights carried by
+    weights.py: logits and every parameter gradient within 1e-4 of the
+    largest magnitude of each. Each backend's own function is held to the
+    JAX package's function of the same backend above, and the JAX package's
+    tests/test_depthwise.py holds its 'taps' and 'dense' B0 to its 'conv'
+    B0. Batch norm runs on its running statistics (eval mode): in train
+    mode the last stages at 1x1 normalize over 2 values a channel, where
+    both frameworks' float32 rounding is amplified past any fixed tolerance
+    (see tests/test_torch_backbones.py); the depthwise forward and backward
+    are the same either way."""
+    v, x, jl, want = flax_b0
+    tm = build_model("efficient_b0", 3, dw_backend=backend)
+    tm.load_state_dict(from_jax_variables(v), strict=True)
     tm.eval()
     _, logits = tm(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
-    jl = np.asarray(jlogits)
     np.testing.assert_allclose(logits.detach().numpy(), jl, rtol=0,
                                atol=1e-4 * np.abs(jl).max())
     (logits ** 2).sum().backward()

@@ -4,12 +4,14 @@ hygiene.
 
 Both sides run float32 on the CPU with the 'normonly' weak backend (views
 are the normalized images, no random warp, so no random stream has to
-match) and dropout-free models; the JAX initial weights are copied into the
-port with fedmlp_tpu_torch/weights.py, and both sides draw the same batch
-plans from the same numpy stream.
+match) and dropout-free models; both start from the same weights, carried
+by fedmlp_tpu_torch/weights.py (drawn with numpy in flax's shapes for the
+round and step tests, the JAX Trainer's for the Trainer tests), and both sides draw
+the same batch plans from the same numpy stream.
 """
 
 import ast
+import functools
 import pathlib
 import subprocess
 import sys
@@ -35,6 +37,7 @@ from fedmlp_tpu_torch.parallel import fl_runtime as trt
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_variables import flax_shapes, numpy_variables
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
@@ -42,17 +45,20 @@ BLOCKS = ((1, 16, 1, 1, 3), (6, 24, 2, 2, 3))
 C, B, IMG = 4, 4, 32
 
 
+@functools.lru_cache(maxsize=None)
 def _models():
+    """flax's narrow EfficientNet, the port's module builder, and the
+    initial variables both start from, drawn with numpy in flax's shapes
+    (tests/torch_variables.py), once a process (the tests only read
+    them)."""
     jm = JE.EfficientNet(0.5, 1.0, C, dtype=jnp.float32, blocks=BLOCKS,
                          dropout_p=0.0, drop_connect_rate=0.0)
-    v = jax.jit(lambda r: jm.init(r, jnp.zeros((2, IMG, IMG, 3)), train=False))(
-        jax.random.PRNGKey(0))
-    v = jax.tree_util.tree_map(np.asarray, v)
 
     def port():
         return TE.EfficientNet(0.5, 1.0, C, blocks=BLOCKS, dropout_p=0.0,
                                drop_connect_rate=0.0)
 
+    v = numpy_variables(flax_shapes(jm, IMG, train=False), 0)
     return jm, v, port
 
 

@@ -9,6 +9,7 @@ fedmlp_tpu_torch/weights.py and both sides draw the same batch plans from
 the same numpy stream.
 """
 
+import functools
 import json
 import os
 import pickle
@@ -57,13 +58,20 @@ def test_rampups_match_jax():
             assert TL.sigmoid_rampup(cur, length) == JL.sigmoid_rampup(cur, length)
 
 
+@functools.lru_cache(maxsize=None)
+def _smallcnn(key: int):
+    """flax's ``smallcnn`` and its initial variables from PRNGKey(``key``),
+    jitted, once a process (the tests only read them)."""
+    jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, IMG, IMG, 3)), train=False))(
+        jax.random.PRNGKey(key))
+    return jm, jax.tree_util.tree_map(np.asarray, v)
+
+
 def _client_trees(n_clients, seed=0):
     """``smallcnn`` variables of ``n_clients`` clients: JAX's initial
     weights plus client-specific noise, stacked [K, ...] on both sides."""
-    jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
-    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0),
-                                                   jnp.zeros((1, IMG, IMG, 3)),
-                                                   train=False))
+    _, v = _smallcnn(0)
     rs = np.random.RandomState(seed)
     per = [jax.tree_util.tree_map(
         lambda a, s=0.01 * (1 + k): (a + s * rs.randn(*a.shape)).astype(np.float32), v)
@@ -135,10 +143,7 @@ def test_loss_value_and_gradient_match_jax(branch):
     the largest gradient entry."""
     rs = np.random.RandomState(3)
     B = 6
-    jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
-    v = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(1),
-                                                   jnp.zeros((1, IMG, IMG, 3)),
-                                                   train=False))
+    jm, v = _smallcnn(1)
     x = rs.randn(B, IMG, IMG, 3).astype(np.float32)
     g_logits = (2.0 * rs.randn(B, C)).astype(np.float32)
     labels = (rs.rand(B, C) > 0.5).astype(np.float32)
@@ -157,7 +162,7 @@ def test_loss_value_and_gradient_match_jax(branch):
                           {"labels": jnp.asarray(labels)}, jnp.asarray(svalid), jctx,
                           None, None, jscal)[0]
 
-    want, jgrad = jax.value_and_grad(jloss)(v["params"])
+    want, jgrad = jax.jit(jax.value_and_grad(jloss))(v["params"])
 
     model = tbuild("smallcnn", C)
     model.load_state_dict(from_jax_variables(v))

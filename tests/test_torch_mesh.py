@@ -14,18 +14,34 @@ process computes the JAX package's side:
   (d) RSCFed's teacher and RoFL's per-client state (and harvest) on the
       client axis: equal bits to one rank;
   (e) FedMLP streamed in windows of 2 steps, sharded, against resident,
-      unwindowed and unsharded;
+      unwindowed and unsharded; FixMatch streamed with views made before
+      the round, sharded, against resident on one rank;
   (h) the CLI inside the group: only rank 0 writes, and a resume from its
-      checkpoint equals the straight run on both ranks.
+      checkpoint equals the straight run on both ranks;
+  (i) FixMatch with views made before the round (``pre_augment``) and
+  (ii) FedMLP with ``hoist_augment`` over 2 client shards: equal bits to one
+      rank, each rank's views the slice of the one rank's whole-round views;
+  (iii) views made before the round on the 1 x 2 data axis: 'normonly'
+      equal bits to views made in the step, drawn ones the whole round's
+      rows;
+  (iv) ``batch_size=9`` over 2 data shards runs unsharded, as without a
+      mesh, with a warning.
 
 A second group, of four ranks, then runs (g) FedMLP over a 2 x 2 mesh (client
 and data groups of their own), which equals it over 1 x 2 bit for bit, and
 (f): rank 1 raises, and the launcher raises.
 
+Last, the CLI started by ``torchrun`` (``init_from_env``) on two processes.
+
 smallcnn at 32 px, float32. Each launch has a 60 s limit, so a hang fails
 its test instead of running the suite's clock out."""
 
 import concurrent.futures
+import json
+import os
+import signal
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +57,7 @@ from fedmlp_tpu.models.factory import init_model as jinit
 from fedmlp_tpu.parallel import fl_runtime as jrt
 from fedmlp_tpu.parallel.mesh import make_mesh as jmake_mesh
 from fedmlp_tpu.train import Trainer as JTrainer
-from fedmlp_tpu_torch.config import Config, DataConfig, MeshConfig
+from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig, MeshConfig
 from fedmlp_tpu_torch.data.datasets import make_synthetic_dataset, save_packed_dataset
 from fedmlp_tpu_torch.parallel import fl_runtime as trt
 from fedmlp_tpu_torch.parallel.mesh import launch, pad_clients, pick_backend
@@ -159,12 +175,15 @@ def _assert_equal_runs(a: dict, b: dict, generator: bool = True) -> None:
     np.testing.assert_array_equal(a["host"], b["host"])
 
 
-@pytest.mark.parametrize("scenario", ["fedavg", "rscfed", "rofl", "centralized", "stream"])
+@pytest.mark.parametrize("scenario", ["fedavg", "rscfed", "rofl", "centralized", "stream",
+                                      "stream_pre"])
 def test_sharded_rounds_equal_one_rank(group, scenario):
     """(a), (d), (e): two rounds over 2 client shards equal the rounds of
     one rank on the same per-client streams, bit for bit, on both ranks
     (RSCFed's persistent teachers too; 'centralized' has one client, so
-    the second rank's block is empty)."""
+    the second rank's block is empty); 'stream_pre': FixMatch streamed from
+    the shard with views made before the round, each rank's from the images
+    the loader gathered for its block, against one rank's resident rounds."""
     ranks, _ = group
     solo = _solo(ranks, scenario)
     for r in (0, 1):
@@ -177,6 +196,73 @@ def test_sharded_rounds_equal_one_rank(group, scenario):
     assert len(solo["losses"][0]) == (1 if scenario == "centralized" else 3)
     if scenario in ("rofl", "stream"):  # harvests ran: centroids or prototypes
         assert any(np.abs(v).sum() > 0 for v in solo["state"].values())
+
+
+def _assert_views_are_slices(runs: list, solo: list, n_calls: int) -> None:
+    """Each run's recorded ``pre_augment_views`` calls (one list a rank)
+    made, from the generator state of the one-rank run's calls, the slice
+    of that run's whole-round views at the rank's block, bit for bit."""
+    assert len(solo) == n_calls
+    for calls in runs:
+        assert len(calls) == n_calls
+        for got, want in zip(calls, solo):
+            np.testing.assert_array_equal(got["state"], want["state"])
+            (c0, c1), (r0, r1) = got["block"]
+            assert want["block"][0][0] == 0 and want["block"][1][0] == 0
+            for n, v in want["views"].items():
+                assert v.shape[1:3] == (want["block"][0][1], want["block"][1][1])
+                np.testing.assert_array_equal(got["views"][n], v[:, c0:c1, r0:r1], err_msg=n)
+
+
+@pytest.mark.parametrize("scenario", list(W.VIEW_KNOBS))
+def test_views_before_the_round_sharded_equal_one_rank(group, scenario):
+    """(i) FixMatch with ``pre_augment=16`` (a weak and a strong view drawn)
+    and (ii) FedMLP with ``hoist_augment=1`` (stage 1's two views and stage
+    2's one, hoisted: 192 and 96 view images): two rounds over 2 client
+    shards (clients 0-1 and 2) equal one rank's bit for bit on both ranks,
+    and each round's views on each rank are the slice of the one rank's
+    whole-round views from the same generator state."""
+    ranks, _ = group
+    solo = _solo(ranks, scenario)
+    for r in (0, 1):
+        _assert_equal_runs(ranks[r][scenario], solo)
+    _assert_views_are_slices([ranks[r][scenario]["views"] for r in (0, 1)],
+                             solo["views"], 2)
+    assert [ranks[r][scenario]["views"][0]["block"][0] for r in (0, 1)] == [(0, 2), (2, 3)]
+
+
+def test_data_axis_views_before_the_round(group):
+    """(iii) FedAVG over 1 client x 2 data shards with ``pre_augment=16``:
+    with 'normonly' views two rounds equal bit for bit the same rounds with
+    views made in the step (the code that ``test_data_axis_matches_the_jax_
+    round`` holds to JAX's 1 x 2 round) on both ranks; with views drawn each
+    data rank's views are its 4 rows of every step of the whole round's
+    views (cut from the whole round's draws, as JAX draws them globally)."""
+    ranks, _ = group
+    for r in (0, 1):
+        runs = ranks[r]["data_views"]
+        _assert_equal_runs(runs["pre"], runs["step"])
+        _assert_equal_runs(runs["pre"], ranks[0]["data_views"]["pre"])
+    _assert_views_are_slices([ranks[r]["data_views"]["views"] for r in (0, 1)],
+                             _solo(ranks, "data_views"), 1)
+    assert [ranks[r]["data_views"]["views"][0]["block"][1] for r in (0, 1)] == [(0, 4),
+                                                                                (4, 8)]
+
+
+def test_an_undivided_batch_runs_unsharded(group):
+    """(iv) ``batch_size=9`` with ``mesh.data_axis=2`` in the group of two:
+    the trainer builds the 1 x 2 mesh, logs a warning naming both fields,
+    and runs its rounds unsharded (``round_mesh`` None), as the JAX
+    ``Trainer``: two rounds with views drawn equal bit for bit the same
+    rounds without a mesh, on both ranks."""
+    ranks, _ = group
+    alone = _solo(ranks, "undivided")
+    for r in (0, 1):
+        u = ranks[r]["undivided"]
+        assert u["mesh"] == (1, 2) and not u["round_mesh"]
+        assert any("batch_size=9" in w and "mesh.data_axis=2" in w for w in u["warnings"]), \
+            u["warnings"]
+        _assert_equal_runs(u, alone)
 
 
 @pytest.mark.parametrize("engine", ["off", "on"])
@@ -291,7 +377,6 @@ def _cfg(**kw) -> Config:
     (dict(mesh=MeshConfig(data_axis=2)), 1, ("mesh.data_axis",)),
     (dict(mesh=MeshConfig(data_axis=3)), 2, ("mesh.data_axis",)),
     (dict(mesh=MeshConfig(client_axis=2)), 2, ("mesh.client_axis",)),
-    (dict(batch_size=9, mesh=MeshConfig(data_axis=2)), 2, ("batch_size", "mesh.data_axis")),
     (dict(algorithm="rofl", mesh=MeshConfig(data_axis=2)), 2,
      ("algorithm", "mesh.data_axis")),
     (dict(algorithm="fedmlp", batched_global="on", mesh=MeshConfig(data_axis=2)), 2,
@@ -299,8 +384,11 @@ def _cfg(**kw) -> Config:
     (dict(client_stacking="on"), 2, ("client_stacking", "mesh.data_axis")),
     (dict(hoist_augment=1, mesh=MeshConfig(data_axis=2)), 2,
      ("hoist_augment", "mesh.data_axis")),
-    (dict(hoist_augment=1), 2, ("hoist_augment", "mesh.data_axis")),
-    (dict(pre_augment=16), 2, ("pre_augment", "mesh.data_axis")),
+    (dict(algorithm="fedmlp", batched_global="on", pre_augment=16), 2,
+     ("pre_augment", "batched_global")),
+    (dict(client_stacking="on", pre_augment=16), 2, ("pre_augment", "client_stacking")),
+    (dict(algorithm="fedmlp", pre_augment=16, fedmlp=FedMLPConfig(stage2_distill=True)), 2,
+     ("fedmlp.stage2_distill", "pre_augment")),
 ])
 def test_mesh_refusals_name_their_fields(kw, world, fields):
     """Each refusal of a mesh raises at the check, naming every field
@@ -311,6 +399,21 @@ def test_mesh_refusals_name_their_fields(kw, world, fields):
         assert f"{f}=" in str(e.value), (f, str(e.value))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(hoist_augment=1),
+    dict(pre_augment=16),
+    dict(pre_augment=16, mesh=MeshConfig(data_axis=2)),
+    dict(batch_size=9, mesh=MeshConfig(data_axis=2)),
+    dict(hoist_augment=1, batch_size=9, mesh=MeshConfig(data_axis=2)),
+], ids=["hoist", "pre_augment", "pre_augment-data", "undivided-batch",
+        "hoist-undivided-batch"])
+def test_mesh_configs_that_run_pass_the_check(kw):
+    """What JAX runs on a mesh of two and the port now runs too: the hoist
+    on the client axis, views made before the round on either axis, and a
+    batch the data axis does not divide (run unsharded, a hoist too)."""
+    check_ported(_cfg(**kw), 2)
+
+
 def test_a_one_process_world_keeps_its_rounds():
     """Outside a group a mesh of one rank is built and the rounds take none
     (``round_mesh`` None); ``use_mesh=False`` builds none."""
@@ -319,3 +422,49 @@ def test_a_one_process_world_keeps_its_rounds():
     t = Trainer(_cfg(), device="cpu")
     assert t.mesh.size == 1 and t.round_mesh is None
     assert Trainer(_cfg(), device="cpu", use_mesh=False).mesh is None
+
+
+TORCHRUN_TIMEOUT_S = 60
+
+
+def test_the_cli_under_torchrun(tmp_path):
+    """The CLI started by ``torchrun`` (``python -m torch.distributed.run
+    --standalone --nproc_per_node 2``): each process starts the group from
+    its environment (``init_from_env``, ``env://``, gloo on the CPU) and
+    runs one round of FedAVG with views made before the round, sharded over
+    the two processes, and its evaluation; the command exits 0, rank 0 prints the mesh line, and the
+    one output tree holds what one writer writes (rank 1 writes nothing: a
+    checkpoint, each metric record and each log line once)."""
+    out = tmp_path / "out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "fedmlp_tpu_torch.cli", "--exp", "FedAVG",
+           "--dataset", "synthetic", "--model", "smallcnn", "--device", "cpu",
+           "--compute_dtype", "float32", "--rounds", "1", "--n_clients", "3",
+           "--batch_size", "8", "--image_size", str(W.IMG), "--n_classes", str(W.C),
+           "--synthetic_train_size", "48", "--synthetic_test_size", "16",
+           "--checkpoint_every", "1", "--pre_augment", "16", "--output_dir", str(out)]
+    env = {**os.environ, "OMP_NUM_THREADS": "1",
+           "PYTHONPATH": os.pathsep.join(filter(None, [os.getcwd(),
+                                                       os.environ.get("PYTHONPATH")]))}
+    # a session of its own, so that a timeout kills the workers with the agent
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            env=env, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=TORCHRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+    run = subprocess.CompletedProcess(cmd, proc.returncode, stdout, stderr)
+    assert run.returncode == 0, run.stdout[-4000:] + run.stderr[-4000:]
+    assert run.stdout.count("mesh: 2 processes, backend gloo") == 1, run.stdout[-4000:]
+    tree = out / "FedAVG_synthetic"
+    files = sorted(str(p.relative_to(tree)) for p in tree.rglob("*") if p.is_file())
+    assert [f for f in files if f.startswith("models/")] == ["models/ckpt_0.pkl"], files
+    assert sum("events.out.tfevents" in f for f in files) <= 1, files
+    records = [json.loads(line) for line in (tree / "logs/metrics.jsonl").read_text()
+               .splitlines()]
+    keys = [(r["tag"], r["step"]) for r in records]
+    assert len(keys) == len(set(keys)) and ("test_run0/mAP", 0) in keys, keys
+    logs = (tree / "logs/logs.txt").read_text()
+    assert logs.count("engine: per-client loop") == 1, logs

@@ -6,6 +6,8 @@ Tolerance atol 1e-4 in float32: the two frameworks order their convolution
 and reduction sums differently, a few ulps per layer.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,14 +27,17 @@ ATOL = 1e-4
 BLOCKS = ((1, 16, 1, 1, 3), (6, 24, 2, 2, 3), (6, 40, 1, 2, 5))
 
 
-def _pair(name):
+@functools.lru_cache(maxsize=None)
+def _flax(name):
+    """flax's module of ``name``, its variables (one init a process; the
+    tests only read them) and its forward, jitted once a process for each
+    mode: one compile of the whole graph costs less than an eager forward,
+    which compiles each op."""
     if name == "efficientnet":
         jm = JE.EfficientNet(0.5, 1.0, 5, dtype=jnp.float32, blocks=BLOCKS,
                              dropout_p=0.0, drop_connect_rate=0.0)
-        tm = TE.EfficientNet(0.5, 1.0, 5, blocks=BLOCKS, dropout_p=0.0,
-                             drop_connect_rate=0.0)
     else:
-        jm, tm = JS.SmallCNN(5), TS.SmallCNN(5)
+        jm = JS.SmallCNN(5)
     v = jax.jit(lambda r: jm.init(r, jnp.zeros((2, 32, 32, 3)), train=False))(
         jax.random.PRNGKey(0))
     v = jax.tree_util.tree_map(np.asarray, v)
@@ -40,6 +45,18 @@ def _pair(name):
     rng = np.random.RandomState(1)
     v["batch_stats"] = jax.tree_util.tree_map(
         lambda a: (a + rng.rand(*a.shape).astype(np.float32) * 0.5), v["batch_stats"])
+    apply = {False: jax.jit(lambda v, x: jm.apply(v, x, train=False)),
+             True: jax.jit(lambda v, x: jm.apply(v, x, train=True, mutable=["batch_stats"]))}
+    return jm, v, apply
+
+
+def _pair(name):
+    jm, v, _ = _flax(name)
+    if name == "efficientnet":
+        tm = TE.EfficientNet(0.5, 1.0, 5, blocks=BLOCKS, dropout_p=0.0,
+                             drop_connect_rate=0.0)
+    else:
+        tm = TS.SmallCNN(5)
     tm.load_state_dict(from_jax_variables(v), strict=True)
     return jm, tm, v
 
@@ -52,13 +69,14 @@ def test_forward_matches_jax(name, train):
     the TF-SAME pads are asymmetric) leaves 2-4 values per channel in the
     last layers, where flax's biased variance and nn.BatchNorm2d's
     unbiased one differ by a factor of up to 2."""
-    jm, tm, v = _pair(name)
+    _, tm, v = _pair(name)
+    apply = _flax(name)[2][train]
     x = np.random.RandomState(2).randn(2, 33, 33, 3).astype(np.float32)
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     tm.train(train)
     ft, lt = tm(xt)
     if train:
-        (fj, lj), mut = jm.apply(v, x, train=True, mutable=["batch_stats"])
+        (fj, lj), mut = apply(v, x)
         want_stats = from_jax_variables(
             {"batch_stats": jax.tree_util.tree_map(np.asarray, mut["batch_stats"])})
         sd = tm.state_dict()
@@ -66,7 +84,7 @@ def test_forward_matches_jax(name, train):
             np.testing.assert_allclose(sd[k].numpy(), w.numpy(), rtol=0, atol=ATOL,
                                        err_msg=k)
     else:
-        fj, lj = jm.apply(v, x, train=False)
+        fj, lj = apply(v, x)
     np.testing.assert_allclose(ft.detach().numpy(), np.asarray(fj), rtol=0, atol=ATOL)
     np.testing.assert_allclose(lt.detach().numpy(), np.asarray(lj), rtol=0, atol=ATOL)
 

@@ -33,8 +33,9 @@ from fedmlp_tpu_torch.config import Config, DataConfig, FedMLPConfig
 from fedmlp_tpu_torch.models import build_model, init_model, layers
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
 from fedmlp_tpu_torch.train import Trainer
-from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
+from fedmlp_tpu_torch.weights import from_jax_variables
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_variables import flax_shapes, numpy_variables
 
 
 def _step(model, x, generator=None):
@@ -85,30 +86,20 @@ def test_remat_is_bit_for_bit_on_b0_with_drop_connect(kw, names):
                            sd["block1_1.dw_bn.running_mean"])
 
 
-@pytest.mark.parametrize("kw", [dict(remat=True), dict(remat_stages=(0, 1))])
-def test_remat_b0_matches_jax_in_float64(kw):
-    """A train step of the port's rematerialized B0 against the JAX
-    package's (``nn.remat(MBConv)``) with the same weights (batch-norm
-    scales, biases and running statistics drawn away from their init),
-    float64 on both sides but for the float32 heads, batch 4 at 32 px, loss
-    Σ logits²: the logits, every parameter gradient and the running
-    statistics after the step (flax keeps the forward's update and drops
-    the recompute's) within 1e-6 of the largest magnitude of each. No
-    dropout generator on either side (JAX's draws are not the port's);
-    the port's own bit-for-bit test above covers drop-connect."""
-    tm = init_model(build_model("efficient_b0", 3, **kw), 2)
-    rs = np.random.RandomState(6)
-    with torch.no_grad():
-        for n, t in tm.state_dict().items():
-            if n.endswith("running_var") or (t.dim() == 1 and n.endswith("weight")):
-                t.copy_(torch.from_numpy(0.5 + rs.rand(*t.shape)))
-            elif n.endswith("running_mean") or n.endswith("bias"):
-                t.copy_(torch.from_numpy(0.2 * rs.randn(*t.shape)))
-    v = to_jax_variables(tm.state_dict())
-    x = rs.randn(4, 32, 32, 3)
+@pytest.fixture(scope="module")
+def jax_remat_b0():
+    """A train step of the JAX package's rematerialized B0 (``remat=True``:
+    ``nn.remat(MBConv)`` on every block), float64 but for the float32 head,
+    batch 4 at 32 px, loss Σ logits², from weights drawn with numpy in
+    flax's shapes (batch-norm scales, biases and running statistics drawn
+    away from their init; tests/torch_variables.py): the weights, the
+    input, the logits, and every parameter gradient and running statistic
+    after the step, computed once a module for both cases below."""
+    x = np.random.RandomState(6).randn(4, 32, 32, 3)
     with jax.enable_x64():
+        jm = j_build_model("efficient_b0", 3, compute_dtype=jnp.float64, remat=True)
+        v = numpy_variables(flax_shapes(jm, 32, train=False), 2, perturb=True)
         v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), v)
-        jm = j_build_model("efficient_b0", 3, compute_dtype=jnp.float64, **kw)
 
         def jloss(params):
             (_, logits), mut = jm.apply({"params": params,
@@ -122,6 +113,24 @@ def test_remat_b0_matches_jax_in_float64(kw):
             lambda a: np.asarray(a, np.float64),
             {"params": jgrads, "batch_stats": mut["batch_stats"]}))
         jl = np.asarray(jlogits, np.float64)
+    return v, x, jl, want
+
+
+@pytest.mark.parametrize("kw", [dict(remat=True), dict(remat_stages=(0, 1))])
+def test_remat_b0_matches_jax_in_float64(jax_remat_b0, kw):
+    """A train step of the port's rematerialized B0 (every block, and
+    stages 0 and 1) against the JAX package's ``nn.remat`` B0 with the same
+    weights (``jax_remat_b0``; remat changes what the backward keeps, never
+    what it computes, and the JAX package's tests/test_models.py holds its
+    ``remat_stages`` model to its model without remat): the logits, every
+    parameter gradient and the running statistics after the step (flax
+    keeps the forward's update and drops the recompute's) within 1e-6 of
+    the largest magnitude of each. No dropout generator on either side
+    (JAX's draws are not the port's); the port's own bit-for-bit test above
+    covers drop-connect."""
+    v, x, jl, want = jax_remat_b0
+    tm = build_model("efficient_b0", 3, **kw)
+    tm.load_state_dict(from_jax_variables(v), strict=True)
     tm.double().head.float()
     tm.train()
     _, logits = tm(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))

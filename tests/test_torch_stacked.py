@@ -27,6 +27,7 @@ from fedmlp_tpu_torch.parallel import fl_runtime as rt
 from fedmlp_tpu_torch.train import Trainer
 from fedmlp_tpu_torch.weights import from_jax_variables
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_variables import flax_shapes, numpy_variables
 
 K, B, C = 3, 4, 5
 TOL = dict(rtol=2e-4, atol=2e-4)
@@ -96,10 +97,11 @@ def test_stacked_forward_matches_per_client_forwards(name, image, normed):
 def test_stacked_forward_matches_jax_stacked_apply(name, image):
     """The same K clients' weights in both packages (flax variables through
     ``weights.py``), the same views: logits, features and the new running
-    statistics within 2e-4, in eval and in train mode."""
+    statistics within 2e-4, in eval and in train mode. The weights start
+    from variables drawn with numpy in flax's shapes
+    (tests/torch_variables.py)."""
     jm = jbuild(name, C, compute_dtype=jnp.float32)
-    base = jax.jit(lambda r: jm.init(r, jnp.zeros((1, image, image, 3)), train=False))(
-        jax.random.PRNGKey(0))
+    base = numpy_variables(flax_shapes(jm, image, train=False), 0)
     rs = np.random.RandomState(2)
     jvars = jax.tree_util.tree_map(
         lambda v: np.stack([np.asarray(v) * (1 + 0.05 * rs.randn(*v.shape)).astype(np.float32)

@@ -35,6 +35,7 @@ from fedmlp_tpu_torch.data.datasets import make_synthetic_dataset
 from fedmlp_tpu_torch.models import build_model as tbuild
 from fedmlp_tpu_torch.ops import augment as TA
 from fedmlp_tpu_torch.parallel import fl_runtime as trt
+from fedmlp_tpu_torch.parallel.mesh import Place
 from fedmlp_tpu_torch.train import Trainer as TTrainer, UnportedConfigError
 from fedmlp_tpu_torch.weights import from_jax_variables, to_jax_variables
 from test_torch_strong import _QUANTIZING, _jax_strong_draws
@@ -237,7 +238,9 @@ def test_pre_augment_views_is_chunk_invariant(view_mode, backend):
     """imgs [S=2, K=3, B=4] at 16 px: chunk=5 (a ragged last chunk) and
     chunk=N from one generator state give equal bits, and so does every
     chunk size; the generator ends in the same state. The weak view is the
-    backend's own function on the first draws of the stream."""
+    backend's own function on the first draws of the stream. A block of the
+    round (a mesh rank's clients and rows, an empty one included) makes
+    every draw of the whole round and gets the slice of its views."""
     imgs = torch.from_numpy(np.random.RandomState(0).randint(
         0, 256, (2, 3, 4, 16, 16, 3), dtype=np.uint8))
     kw = dict(view_mode=view_mode, augment_backend=backend, mean=MEAN, std=STD)
@@ -253,6 +256,15 @@ def test_pre_augment_views_is_chunk_invariant(view_mode, backend):
         for n in names:
             assert small[n].shape == (2, 3, 4, 3, 16, 16) and small[n].dtype == torch.float32
             assert torch.equal(small[n], full[n]), (chunk, n)
+    for clients, rows in ((range(0, 2), slice(0, 2)), (range(2, 3), slice(2, 4)),
+                          (range(3, 3), slice(0, 4))):
+        g.manual_seed(7)
+        part = trt.pre_augment_views(imgs[:, clients.start:clients.stop, rows], g, chunk=5,
+                                     place=Place(3, clients, 4, rows), **kw)
+        assert torch.equal(g.get_state(), after)
+        for n in names:
+            want = full[n][:, clients.start:clients.stop, rows]
+            assert part[n].shape == want.shape and torch.equal(part[n], want), (clients, n)
     weak = TA.pick_weak_backend(backend)(imgs.reshape(24, 16, 16, 3),
                                          torch.Generator().manual_seed(7), MEAN, STD)
     assert torch.equal(full[names[0]].reshape(24, 3, 16, 16), weak)
@@ -365,11 +377,14 @@ def test_hoist_only_up_to_4096_view_images(monkeypatch, view_mode, S, hoisted):
 IMG, B = 32, 4
 
 
+@functools.lru_cache(maxsize=None)
 def _smallcnn_vars(seed=0):
+    """flax's smallcnn and its initial variables, jitted, once a process
+    (the tests only read them)."""
     jm = jbuild("smallcnn", C, compute_dtype=jnp.float32)
-    v = jax.tree_util.tree_map(np.asarray, jm.init(
-        jax.random.PRNGKey(seed), jnp.zeros((1, IMG, IMG, 3)), train=False))
-    return jm, v
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, IMG, IMG, 3)), train=False))(
+        jax.random.PRNGKey(seed))
+    return jm, jax.tree_util.tree_map(np.asarray, v)
 
 
 def test_round_on_given_views_matches_jax():

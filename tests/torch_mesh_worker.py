@@ -4,6 +4,9 @@ module imports torch, numpy and the port, never JAX; the test file holds
 the JAX side and compares. Each scenario returns numpy arrays and lists, so
 the parent reads them without the port's objects."""
 
+import contextlib
+import logging
+
 import numpy as np
 import torch
 
@@ -62,35 +65,70 @@ def _rounds(tr, n: int) -> dict:
     return _summary(tr, [tr.run_round(r).client_losses for r in range(n)])
 
 
-def _small(algorithm: str, mesh=MeshConfig(), **data_kw) -> Config:
-    return Config(algorithm=algorithm, **SMALL, mesh=mesh,
+def _small(algorithm: str, mesh=MeshConfig(), knobs=None, **data_kw) -> Config:
+    return Config(algorithm=algorithm, **{**SMALL, **(knobs or {})}, mesh=mesh,
                   data=DataConfig(**SMALL_DATA, **data_kw))
 
 
 # the rank that runs each scenario's one-rank reference, after every
 # sharded run (the two ranks share that work)
 SOLO_RANK = {"fedavg": 0, "rscfed": 1, "rofl": 0, "centralized": 1, "stream": 1,
-             "fedmlp_off": 0, "fedmlp_on": 1}
+             "fedmlp_off": 0, "fedmlp_on": 1, "fixmatch_pre": 0, "fedmlp_hoist": 1,
+             "data_views": 0, "undivided": 1, "stream_pre": 0}
+
+# (i), (ii): views made before the round, and hoisted, over 2 client shards
+VIEW_KNOBS = {"fixmatch_pre": ("fixmatch", {"pre_augment": 16}),
+              "fedmlp_hoist": ("fedmlp", {"hoist_augment": 1})}
 
 
-def client_axis(algorithm: str) -> tuple:
-    """(a), (d): two rounds sharded over the two ranks ('centralized': one
-    client, so rank 1 holds none); and the same rounds on one rank."""
-    cfg = _small(algorithm)
-    tr = Trainer(cfg, device="cpu")
-    assert tr.round_mesh.client_shards == 2 and tr.round_mesh.data_shards == 1
-    sharded = _rounds(tr, 2)
-    if algorithm == "rscfed":
-        sharded["teacher"] = _np(tr._rscfed_teacher)
+@contextlib.contextmanager
+def recorded_views(calls: list):
+    """Record every ``pre_augment_views`` call (the Trainer's before the
+    round, the hoist's in it) into ``calls``: the generator's state before
+    it, the block it made ((start, stop) of the clients and of the rows;
+    None for the whole round) and its views."""
+    from fedmlp_tpu_torch.parallel import fl_runtime as rt
 
-    def solo():
-        solo = SoloTrainer(cfg, device="cpu")
-        out = _rounds(solo, 2)
-        if algorithm == "rscfed":
-            out["teacher"] = _np(solo._rscfed_teacher)
+    made = rt.pre_augment_views
+
+    def recording(imgs, generator, **kw):
+        state = generator.get_state().numpy()
+        out = made(imgs, generator, **kw)
+        place = kw.get("place")
+        B = place.batch_size if place else imgs.shape[2]
+        rows = range(B)[place.rows if place else slice(None)]
+        clients = place.clients if place else range(imgs.shape[1])
+        calls.append({"state": state, "views": _np(out),
+                      "block": ((clients.start, clients.stop), (rows.start, rows.stop))})
         return out
 
-    return sharded, solo
+    rt.pre_augment_views = recording
+    try:
+        yield
+    finally:
+        rt.pre_augment_views = made
+
+
+def client_axis(algorithm: str, knobs=None) -> tuple:
+    """(a), (d), and with ``knobs`` (i), (ii): two rounds sharded over the
+    two ranks ('centralized': one client, so rank 1 holds none); and the
+    same rounds on one rank. With ``knobs`` each run also returns the views
+    of its ``pre_augment_views`` calls (``recorded_views``)."""
+    cfg = _small(algorithm, knobs=knobs)
+
+    def run(tr):
+        calls = []
+        with recorded_views(calls):
+            out = _rounds(tr, 2)
+        if algorithm == "rscfed":
+            out["teacher"] = _np(tr._rscfed_teacher)
+        if knobs:
+            out["views"] = calls
+        return out
+
+    tr = Trainer(cfg, device="cpu")
+    assert tr.round_mesh.client_shards == 2 and tr.round_mesh.data_shards == 1
+    return run(tr), lambda: run(SoloTrainer(cfg, device="cpu"))
 
 
 def fedmlp_vs_jax(init: dict, engine: str) -> tuple:
@@ -148,6 +186,24 @@ def streamed(npy: str) -> tuple:
         SoloTrainer(_small("fedmlp"), train_ds=train, test_ds=test, device="cpu"), 2)
 
 
+def streamed_views_before_the_round(npy: str) -> tuple:
+    """FixMatch with ``pre_augment=16`` streamed from the shard (no window),
+    sharded: each rank makes its block's views from the images the loader
+    gathered for it; and the same rounds resident on one rank."""
+    from fedmlp_tpu_torch.data.datasets import load_packed_dataset
+
+    root = npy.rsplit("/train/", 1)[0]
+    train = load_packed_dataset(f"{root}/train")
+    test = load_packed_dataset(f"{root}/test")
+    knobs = {"pre_augment": 16}
+    tr = Trainer(_small("fixmatch", knobs=knobs, host_stream=True), train_ds=train,
+                 test_ds=test, device="cpu", images_npy=npy)
+    assert tr.loader is not None and tr.round_mesh.client_shards == 2
+    return _rounds(tr, 2), lambda: _rounds(
+        SoloTrainer(_small("fixmatch", knobs=knobs), train_ds=train, test_ds=test,
+                    device="cpu"), 2)
+
+
 def cli_resume(root: str) -> dict:
     """The CLI inside the group (as under ``torchrun``): FedAVG, 3 clients,
     2 rounds with a checkpoint after each, rank r writing under
@@ -190,6 +246,53 @@ def cli_resume(root: str) -> dict:
     return {"straight": straight, "resumed": list(seen), "files": files}
 
 
+def data_axis_views() -> tuple:
+    """(iii) FedAVG over 1 x 2 with views made before the round
+    (``pre_augment=16``): with 'normonly' views two rounds, and the same
+    rounds with views made in the step; with views drawn, one round whose
+    views are recorded, and the same round on one rank (the whole round's
+    views)."""
+    data = MeshConfig(data_axis=2)
+    pre = {"pre_augment": 16}
+    out = {}
+    for name, knobs in (("pre", pre), ("step", None)):
+        tr = Trainer(_small("fedavg", mesh=data, knobs=knobs, augment_backend="normonly"),
+                     device="cpu")
+        assert (tr.round_mesh.client_shards, tr.round_mesh.data_shards) == (1, 2)
+        out[name] = _rounds(tr, 2)
+    cfg = _small("fedavg", mesh=data, knobs=pre)
+
+    def drawn(tr):
+        calls = []
+        with recorded_views(calls):
+            tr.run_round(0)
+        return calls
+
+    out["views"] = drawn(Trainer(cfg, device="cpu"))
+    return out, lambda: drawn(SoloTrainer(cfg, device="cpu"))
+
+
+def undivided_batch() -> tuple:
+    """(iv) FedAVG, views drawn, ``batch_size=9`` with ``mesh.data_axis=2``:
+    two rounds in the group, with the warnings the trainer logged; and the
+    same rounds of the same config without a mesh (as on one process)."""
+    cfg = Config(algorithm="fedavg", **{**SMALL, "batch_size": 9},
+                 mesh=MeshConfig(data_axis=2), data=DataConfig(**SMALL_DATA))
+    seen = []
+    handler = logging.Handler(logging.WARNING)
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger("fedmlp_tpu_torch")
+    logger.addHandler(handler)
+    try:
+        tr = Trainer(cfg, device="cpu")
+    finally:
+        logger.removeHandler(handler)
+    out = {**_rounds(tr, 2), "round_mesh": tr.round_mesh is not None,
+           "mesh": (tr.mesh.client_shards, tr.mesh.data_shards), "warnings": seen}
+    return out, lambda: _rounds(Trainer(cfg.replace(mesh=MeshConfig()), device="cpu",
+                                        use_mesh=False), 2)
+
+
 def data_shards_fedmlp() -> dict:
     """FedMLP (3 clients, views drawn) with ``mesh.data_axis=2``: over two
     ranks a 1 x 2 mesh, over four a 2 x 2 one (client and data groups of
@@ -226,7 +329,13 @@ def run_scenarios(root: str) -> dict:
     out, solos = {"data_shards": data_shards_fedmlp()}, {}
     for name in ("fedavg", "rscfed", "rofl", "centralized"):
         out[name], solos[name] = client_axis(name)
-    out["stream"], solos["stream"] = streamed(os.path.join(root, "train", "images.npy"))
+    for name, (algorithm, knobs) in VIEW_KNOBS.items():
+        out[name], solos[name] = client_axis(algorithm, knobs)
+    out["data_views"], solos["data_views"] = data_axis_views()
+    out["undivided"], solos["undivided"] = undivided_batch()
+    npy = os.path.join(root, "train", "images.npy")
+    out["stream"], solos["stream"] = streamed(npy)
+    out["stream_pre"], solos["stream_pre"] = streamed_views_before_the_round(npy)
     out["cli"] = cli_resume(os.path.join(root, "cli"))
     jax = jax_inputs(root)
     for engine in ("off", "on"):
