@@ -112,7 +112,8 @@ first failure:
    client's steps in windows of 64 images, the next gathered by the native
    loader while one trains), a stage-1 round that harvests through the
    loader, a stage-2 round and the evaluation, beside ``slice``'s rounds,
-   with the ``PhaseTimer`` shares of the loader's waits and the harvest.
+   with the shares of the loader's waits and the harvest from the
+   program's spans.
    First the gates: at 2 clients, float32, cuDNN deterministic, streamed
    against resident bit for bit on the per-client loop and the lockstep
    engine; the loader's pinned buffers against ``gather_plain``; a traced
@@ -1882,28 +1883,16 @@ def stream_gates(dev, card: str, root: str) -> None:
         raise SystemExit("slice_stream: the trace lists no weak-view kernel")
 
 
-def timed(timer, name: str, fn):
-    """``fn`` with each call inside ``timer``'s phase ``name``."""
-    def call(*args, **kw):
-        with timer.phase(name):
-            return fn(*args, **kw)
-    return call
+def span_total(records, name: str, clock: str = "host") -> tuple:
+    """(calls, seconds) of the span ``name`` over the round records
+    ``records`` (``RoundRecord.spans``), on the host's clock or, for the
+    spans that keep one, the device's (``utils/profiling.py``)."""
+    from fedmlp_tpu_torch.utils import profiling
 
-
-def stream_timers(tr, dev) -> tuple:
-    """Wrap ``tr``'s round, harvest and loader waits in ``PhaseTimer``
-    phases: rounds and harvests on the device's clock (synchronized at each
-    end), the waits on the host's alone, so that no wait drains the queue.
-    Returns (host timer, device timer)."""
-    from fedmlp_tpu_torch.algos import fedmlp
-    from fedmlp_tpu_torch.utils.profiling import PhaseTimer
-
-    host, device = PhaseTimer(), PhaseTimer(dev)
-    wait, harvest, run_round = tr.loader.wait, fedmlp._get_harvest(tr), tr.run_round
-    tr.loader.wait = timed(host, "wait", wait)
-    tr._fedmlp_harvest = timed(device, "harvest", harvest)
-    tr.run_round = timed(device, "round", run_round)
-    return host, device
+    profiling.resolve()
+    spans = [r["spans"][name] for r in records if name in r["spans"]]
+    return (sum(s["calls"] for s in spans),
+            sum(s[f"{clock}_ns"] for s in spans) / 1e9)
 
 
 def phase_slice_stream(dev, card: str) -> dict:
@@ -1915,7 +1904,9 @@ def phase_slice_stream(dev, card: str) -> dict:
     harvests through the loader, a stage-2 round (two streamed harvests)
     and the evaluation, all counted. The images never reach the card as a
     table; at most two windows are held at once; each round beside
-    ``slice``'s of its kind, and the ``PhaseTimer`` shares."""
+    ``slice``'s of its kind, and the shares the program's spans give: the
+    rounds' host seconds (each ends in its read of the losses), the
+    harvests' device seconds, the loader waits' host seconds."""
     import os
     import tempfile
 
@@ -1929,26 +1920,28 @@ def phase_slice_stream(dev, card: str) -> dict:
         def on_trainer(tr):
             if tr.fd.images is not None or tr.loader is None:
                 raise SystemExit("slice_stream: the training table is on the card")
-            held["tr"], held["timers"] = tr, stream_timers(tr, dev)
+            held["tr"] = tr
 
         launches = run_flagship("slice_stream", dev, card, cfg, 1, 2, datasets=datasets,
                                 count_eval=True, on_trainer=on_trainer)
-    tr, (host, device) = held["tr"], held["timers"]
+    tr = held["tr"]
     bound = 2 * STREAM_WINDOW * B
     print(f"phase slice_stream: at most {tr.stream_peak_rows} image rows held at once "
           f"(bound 2·W·B = {bound}; the resident table {N} rows, "
           f"{N * SIZE * SIZE * 3 / 2**30:.2f} GiB) [{card}]")
     if not 0 < tr.stream_peak_rows <= bound:
         raise SystemExit(f"slice_stream: {tr.stream_peak_rows} rows held, bound {bound}")
-    rep, wait = device.report(), host.report()["wait"]
-    rounds = rep["round"]["total_s"]
-    harvest = rep["harvest"]["total_s"]
-    print(f"phase slice_stream: PhaseTimer over {rep['round']['calls']} rounds, "
-          f"{rounds:.3f} s: train {rounds - harvest:.3f} s "
-          f"({(rounds - harvest) / rounds:.3f}), harvest {harvest:.3f} s "
-          f"({harvest / rounds:.3f}, {rep['harvest']['calls']} calls), loader wait "
-          f"{wait['total_s']:.3f} s ({wait['total_s'] / rounds:.3f}, {wait['calls']} "
-          f"calls, {1e3 * wait['mean_s']:.2f} ms a call) [{card}]")
+    from fedmlp_tpu_torch.utils import profiling as P
+
+    records = [r.spans for r in tr.history]
+    n_rounds, rounds = span_total(records, P.ROUND)
+    n_harvest, harvest = span_total(records, P.HARVEST, "device")
+    n_wait, wait = span_total(records, P.LOADER_WAIT)
+    print(f"phase slice_stream: spans over {n_rounds} rounds, {rounds:.3f} s: train "
+          f"{rounds - harvest:.3f} s ({(rounds - harvest) / rounds:.3f}), harvest "
+          f"{harvest:.3f} device s ({harvest / rounds:.3f}, {n_harvest} calls), loader "
+          f"wait {wait:.3f} s ({wait / rounds:.3f}, {n_wait} calls, "
+          f"{1e3 * wait / max(n_wait, 1):.2f} ms a call) [{card}]")
     base, base_peak = ROUND_SECONDS.get("slice"), PEAK_GIB.get("slice")
     for rnd, kind, other in ((0, "stage 1 + harvest", 1), (1, "stage 2", 2)):
         t = ROUND_SECONDS["slice_stream"][rnd]
@@ -3257,44 +3250,36 @@ def phase_time_stream(dev, card: str) -> None:
     any), so that a trainer's place in the turn falls on every variant
     alike: 2 stage-1 rounds (the second harvests) and a stage-2 round.
     Seconds, images/s and, when streamed, the seconds the host spent in the
-    loader's gathers and waits (``PhaseTimer``, host clock) of each round,
-    and each round's harvests (``PhaseTimer`` on the device's clock); then
-    each variant's mean. Peak memory is not read: the six trainers share the
+    loader's gathers and waits (the program's spans, host clock) of each
+    round, and each round's harvests (their spans on the device's clock);
+    then each variant's mean. Peak memory is not read: the six trainers share the
     card."""
     import tempfile
 
-    from fedmlp_tpu_torch.algos import fedmlp
     from fedmlp_tpu_torch.train import Trainer
-    from fedmlp_tpu_torch.utils.profiling import PhaseTimer
+    from fedmlp_tpu_torch.utils import profiling as P
 
     with tempfile.TemporaryDirectory() as root:
         base = flagship_config(K, N)
         datasets = packed_flagship("time_stream", root, base.seed, N)
         variants = (("resident", base), ("stream W=0", streamed(base, root, 0)),
                     (f"stream W={STREAM_WINDOW}", streamed(base, root, STREAM_WINDOW)))
-        runs = []  # (variant, trainer, host timer, device timer), in A B C C B A order
-        for name, cfg in variants + variants[::-1]:
-            tr = Trainer(cfg, train_ds=datasets[0], test_ds=datasets[1], device=dev)
-            host, device = PhaseTimer(), PhaseTimer(dev)
-            if tr.loader is not None:
-                tr.loader.wait = timed(host, "read", tr.loader.wait)
-                tr.loader.gather = timed(host, "read", tr.loader.gather)
-            tr._fedmlp_harvest = timed(device, "harvest", fedmlp._get_harvest(tr))
-            runs.append((name, tr, host, device))
+        runs = [(name, Trainer(cfg, train_ds=datasets[0], test_ds=datasets[1], device=dev))
+                for name, cfg in variants + variants[::-1]]  # in A B C C B A order
         secs = {name: [] for name, _ in variants}
         for rnd in range(3):
             line = []
-            for name, tr, host, device in runs:
-                read0, harvest0 = host.totals["read"], device.totals["harvest"]
+            for name, tr in runs:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                tr.run_round(rnd)
+                rec = [tr.run_round(rnd).spans]
                 torch.cuda.synchronize()
                 t = time.perf_counter() - t0
                 secs[name].append(t)
+                read = span_total(rec, P.LOADER_WAIT)[1] + span_total(rec, P.LOADER_GATHER)[1]
                 line.append(f"{name} {t:.3f} s ({N / t:.1f} img/s, harvest "
-                            f"{device.totals['harvest'] - harvest0:.3f} s, loader "
-                            f"{host.totals['read'] - read0:.3f} s)")
+                            f"{span_total(rec, P.HARVEST, 'device')[1]:.3f} s, loader "
+                            f"{read:.3f} s)")
             print(f"phase time_stream round {rnd}: {'; '.join(line)} [{card}]")
         for name, t in secs.items():
             means = [statistics.mean(t[2 * r:2 * r + 2]) for r in range(3)]

@@ -32,6 +32,7 @@ from fedmlp_tpu_torch.ops.similarity import (
     masked_binary_prototypes,
 )
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
+from fedmlp_tpu_torch.utils import profiling as trace
 
 VIEW_MODE = "dual"
 NEEDS_GLOBAL = True
@@ -321,7 +322,8 @@ def custom_round(trainer, rnd: int):
             # prototypes and τ from each client's TRAINED model (:971-1002)
             feats, probs = _get_harvest(trainer)(svars, fd.images, fd.idx,
                                                  trainer.generator, trainer.loader)
-            _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
+            with trace.span(trace.TAGGING):
+                _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
         trainer.global_vars = trainer.aggregate(svars, trainer.dict_len)
         return losses
 
@@ -329,16 +331,18 @@ def custom_round(trainer, rnd: int):
     harvest = _get_harvest(trainer)
     gstack = trainer.broadcast(trainer.global_vars)
     feats, _ = harvest(gstack, fd.images, fd.idx, trainer.generator, trainer.loader)
-    proto = torch.as_tensor(trainer.server_state["proto"], device=trainer.device)
-    scores = torch.stack([fedmlp_similarity_scores(f, proto) for f in feats])
-    order = torch.argsort(scores, dim=1, stable=True)  # stable, on device
-    _update_tags(trainer, scores.cpu().numpy(), order.cpu().numpy())
+    with trace.span(trace.TAGGING):
+        proto = torch.as_tensor(trainer.server_state["proto"], device=trainer.device)
+        scores = torch.stack([fedmlp_similarity_scores(f, proto) for f in feats])
+        order = torch.argsort(scores, dim=1, stable=True)  # stable, on device
+        _update_tags(trainer, scores.cpu().numpy(), order.cpu().numpy())
 
     out_state, losses, _ = trainer.local_pass(
         _get_stage2_fn(trainer), _stage2_sample_arrays(trainer),
         trainer.round_scalars(rnd))
     svars = out_state["vars"]
     feats, probs = harvest(svars, fd.images, fd.idx, trainer.generator, trainer.loader)
-    _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
+    with trace.span(trace.TAGGING):
+        _aggregate_tao_proto(trainer, *_extract_stats(trainer, feats, probs))
     trainer.global_vars = trainer.aggregate(svars, trainer.dict_len)
     return losses

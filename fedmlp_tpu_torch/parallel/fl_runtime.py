@@ -47,6 +47,7 @@ from fedmlp_tpu_torch.data.masking import (
 from fedmlp_tpu_torch.ops import augment as A
 from fedmlp_tpu_torch.parallel.mesh import Place, pad_clients
 from fedmlp_tpu_torch.parallel.streaming import TableImages, open_round_images
+from fedmlp_tpu_torch.utils import profiling as trace
 
 
 _BETAS, _ADAM_EPS, _WEIGHT_DECAY = (0.9, 0.999), 1e-8, 5e-4
@@ -552,70 +553,83 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         aux_sums = [{} for _ in range(K)]
         for k in range(K):
             gen = generator if gens is None else gens[k]
-            model.load_state_dict(global_vars)
-            model.train()
-            opt = torch_adam(model.parameters(), lr)
-            if has_teacher:
-                teacher_model.load_state_dict(client_vars(teacher, k))
-                t_dst, t_src = ema_pairs()
-            kw = {}
-            if cstate is not None:
-                kw["cstate"] = {n: v[k].clone() for n, v in cstate.items()}
-            ctx = {n: v[k] for n, v in data["ctx"].items()}
-            loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+            with trace.span(trace.CLIENT_SETUP):
+                model.load_state_dict(global_vars)
+                model.train()
+                opt = torch_adam(model.parameters(), lr)
+                if has_teacher:
+                    teacher_model.load_state_dict(client_vars(teacher, k))
+                    t_dst, t_src = ema_pairs()
+                kw = {}
+                if cstate is not None:
+                    kw["cstate"] = {n: v[k].clone() for n, v in cstate.items()}
+                ctx = {n: v[k] for n, v in data["ctx"].items()}
+                loss_sum = torch.zeros((), dtype=torch.float32, device=device)
             cnt = 0
             for s in range(S):
                 if not live[s, k]:
                     continue  # padding step: a true no-op
-                p = pos_d[s, k]
-                sample = {n: t[k, p] for n, t in plan["sample"].items()}
-                sample["_pos"] = p
-                if made is None:
-                    views = augment_views(src.client_step(k, s), gen)
-                else:
-                    views = {n: v[s, k] for n, v in made.items()}
-                with cast:
-                    with torch.no_grad():
-                        if needs_global:
-                            _add_global_logits(global_model, views)
+                with trace.span(trace.STEP):
+                    with trace.span(trace.VIEWS):
+                        p = pos_d[s, k]
+                        sample = {n: t[k, p] for n, t in plan["sample"].items()}
+                        sample["_pos"] = p
+                        if made is None:
+                            views = augment_views(src.client_step(k, s), gen)
+                        else:
+                            views = {n: v[s, k] for n, v in made.items()}
+                    with cast:
+                        if needs_global or has_teacher:
+                            with trace.span(trace.GLOBAL_FORWARD), torch.no_grad():
+                                if needs_global:
+                                    _add_global_logits(global_model, views)
+                                if has_teacher:
+                                    _, views[t_key] = teacher_model(views[t_view])
+                        with trace.span(trace.LOSS_FORWARD):
+                            res = step_loss(views, sample, valid_d[s, k], ctx, gen, scalars,
+                                            **kw)
+                    with trace.span(trace.BACKWARD):
+                        loss, aux = res if isinstance(res, tuple) else (res, {})
+                        opt.zero_grad(set_to_none=True)
+                        loss.backward()
+                        loss = loss.detach().float()
+                        aux = {n: a.detach().float() for n, a in aux.items()}
+                    with trace.span(trace.OPTIMIZER):
+                        if split_batch:
+                            # JAX's pmean of the gradients before Adam, of the
+                            # batch-norm statistics and the loss after the step;
+                            # psum of the aux
+                            mesh.data_mean([q.grad for q in model.parameters()
+                                            if q.grad is not None])
+                        opt.step()
+                        if split_batch:
+                            mesh.data_mean([b for b in model.buffers() if b.is_floating_point()]
+                                           + [loss])
+                            mesh.data_sum(list(aux.values()))
                         if has_teacher:
-                            _, views[t_key] = teacher_model(views[t_view])
-                    res = step_loss(views, sample, valid_d[s, k], ctx, gen, scalars, **kw)
-                loss, aux = res if isinstance(res, tuple) else (res, {})
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                loss = loss.detach().float()
-                aux = {n: a.detach().float() for n, a in aux.items()}
-                if split_batch:
-                    # JAX's pmean of the gradients before Adam, of the
-                    # batch-norm statistics and the loss after the step;
-                    # psum of the aux
-                    mesh.data_mean([q.grad for q in model.parameters() if q.grad is not None])
-                opt.step()
-                if split_batch:
-                    mesh.data_mean([b for b in model.buffers() if b.is_floating_point()]
-                                   + [loss])
-                    mesh.data_sum(list(aux.values()))
+                            with torch.no_grad():
+                                alpha, one_minus = teacher_alpha(iter0 + s)
+                                torch._foreach_mul_(t_dst, alpha)
+                                torch._foreach_add_(t_dst, t_src, alpha=one_minus)
+                        if post_step is not None:
+                            kw["cstate"] = post_step(kw["cstate"], aux, sample, valid_d[s, k],
+                                                     ctx)
+                    loss_sum += loss
+                    cnt += 1
+                    for n, a in aux.items():
+                        aux_sums[k][n] = aux_sums[k][n] + a if n in aux_sums[k] else a
+            trace.count(trace.STEPS, cnt)
+            with trace.span(trace.CLIENT_WRITEBACK):
+                mean_losses[k] = loss_sum / max(cnt, 1)
+                for n, v in model.state_dict().items():
+                    stacked[n][k].copy_(v)
                 if has_teacher:
-                    with torch.no_grad():
-                        alpha, one_minus = teacher_alpha(iter0 + s)
-                        torch._foreach_mul_(t_dst, alpha)
-                        torch._foreach_add_(t_dst, t_src, alpha=one_minus)
-                if post_step is not None:
-                    kw["cstate"] = post_step(kw["cstate"], aux, sample, valid_d[s, k], ctx)
-                loss_sum += loss
-                cnt += 1
-                for n, a in aux.items():
-                    aux_sums[k][n] = aux_sums[k][n] + a if n in aux_sums[k] else a
-            mean_losses[k] = loss_sum / max(cnt, 1)
-            for n, v in model.state_dict().items():
-                stacked[n][k].copy_(v)
-            if has_teacher:
-                for n, v in teacher_model.state_dict().items():
-                    out["teacher"][n][k].copy_(v)
-            if cstate is not None:
-                for n, v in kw["cstate"].items():
-                    out["cstate"][n][k].copy_(v)
+                    for n, v in teacher_model.state_dict().items():
+                        out["teacher"][n][k].copy_(v)
+                if cstate is not None:
+                    for n, v in kw["cstate"].items():
+                        out["cstate"][n][k].copy_(v)
+        trace.count(trace.CLIENTS, K)
         src.finish()
         return out, mean_losses, _stack_aux(aux_sums)
 
@@ -707,12 +721,13 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
         device, pos_d, valid_d, _, cast = _step_setup(
             data, plan, compute_dtype, needs_global, global_model, global_vars)
         src = open_round_images(data["images"], data["idx"], pos_d, "step")
-        # each client's own tensors, never views of global_vars
-        clients = [{"model." + n: v.detach().clone() for n, v in global_vars.items()}
-                   for _ in range(K)]
-        for c in clients:
-            for n in pnames:
-                c["model." + n].requires_grad_(True)
+        with trace.span(trace.CLIENT_SETUP):
+            # each client's own tensors, never views of global_vars
+            clients = [{"model." + n: v.detach().clone() for n, v in global_vars.items()}
+                       for _ in range(K)]
+            for c in clients:
+                for n in pnames:
+                    c["model." + n].requires_grad_(True)
         opt = [{} for _ in range(K)]  # name → (exp_avg, exp_avg_sq, step), as Adam's
         loss_sum = [torch.zeros((), dtype=torch.float32, device=device) for _ in range(K)]
         cnt = [0] * K
@@ -720,38 +735,45 @@ def make_lockstep_local_round(model, loss_fn, *, lr: float, batch_size: int, mea
             stepping = np.flatnonzero(pos_valid[s].any(1))
             if not len(stepping):
                 continue
-            p = pos_d[s]
-            views = augment_views(src.step(s), generator)
-            if needs_global:
-                with cast, torch.no_grad():
-                    _add_global_logits(global_model, views)
-            if view_precat and "x1" in views:
-                views["x12"] = _precat(views.pop("x1"), views.pop("x2"))
-            update = ([], [], [], [], [])
-            for k in stepping:
-                sample = {n: t[k, p[k]] for n, t in plan["sample"].items()}
-                sample["_pos"] = p[k]
-                args = ({n: v[k] for n, v in views.items()}, sample, valid_d[s, k],
-                        {n: v[k] for n, v in data["ctx"].items()}, generator, scalars)
-                with cast:
-                    loss = torch.func.functional_call(call, clients[k], args)
-                params = [clients[k]["model." + n] for n in pnames]
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                for n, prm, g in zip(pnames, params, grads):
-                    if g is None:  # as Adam skips a parameter without a gradient
-                        continue
-                    if n not in opt[k]:
-                        opt[k][n] = (torch.zeros_like(prm), torch.zeros_like(prm),
-                                     torch.tensor(0.0))
-                    for lst, t in zip(update, (prm, g) + opt[k][n]):
-                        lst.append(t)
-                loss_sum[k] += loss.detach().float()
-                cnt[k] += 1
-            adam_update(*update, lr)
+            trace.count(trace.STEPS, len(stepping))
+            with trace.span(trace.STEP):
+                with trace.span(trace.VIEWS):
+                    p = pos_d[s]
+                    views = augment_views(src.step(s), generator)
+                if needs_global:
+                    with trace.span(trace.GLOBAL_FORWARD), cast, torch.no_grad():
+                        _add_global_logits(global_model, views)
+                if view_precat and "x1" in views:
+                    views["x12"] = _precat(views.pop("x1"), views.pop("x2"))
+                update = ([], [], [], [], [])
+                for k in stepping:
+                    sample = {n: t[k, p[k]] for n, t in plan["sample"].items()}
+                    sample["_pos"] = p[k]
+                    args = ({n: v[k] for n, v in views.items()}, sample, valid_d[s, k],
+                            {n: v[k] for n, v in data["ctx"].items()}, generator, scalars)
+                    with trace.span(trace.LOSS_FORWARD), cast:
+                        loss = torch.func.functional_call(call, clients[k], args)
+                    params = [clients[k]["model." + n] for n in pnames]
+                    with trace.span(trace.BACKWARD):
+                        grads = torch.autograd.grad(loss, params, allow_unused=True)
+                    for n, prm, g in zip(pnames, params, grads):
+                        if g is None:  # as Adam skips a parameter without a gradient
+                            continue
+                        if n not in opt[k]:
+                            opt[k][n] = (torch.zeros_like(prm), torch.zeros_like(prm),
+                                         torch.tensor(0.0))
+                        for lst, t in zip(update, (prm, g) + opt[k][n]):
+                            lst.append(t)
+                    loss_sum[k] += loss.detach().float()
+                    cnt[k] += 1
+                with trace.span(trace.OPTIMIZER):
+                    adam_update(*update, lr)
         src.finish()
-        # (a rank of a mesh may hold no client: K = 0)
-        out = {n: torch.stack([c["model." + n].detach() for c in clients]) if K
-               else v.new_empty((0,) + v.shape) for n, v in global_vars.items()}
+        trace.count(trace.CLIENTS, K)
+        with trace.span(trace.CLIENT_WRITEBACK):
+            # (a rank of a mesh may hold no client: K = 0)
+            out = {n: torch.stack([c["model." + n].detach() for c in clients]) if K
+                   else v.new_empty((0,) + v.shape) for n, v in global_vars.items()}
         mean_losses = (torch.stack([ls / max(c, 1) for ls, c in zip(loss_sum, cnt)]) if K
                        else torch.zeros((0,), device=device))
         return {"vars": out}, mean_losses, {}
@@ -800,53 +822,61 @@ def make_stacked_local_round(model, stacked_loss_fn, *, lr: float, batch_size: i
         made = _round_views(plan, hoist_augment, n_views, src, pos_d, generator,
                             view_mode=view_mode, augment_backend=augment_backend,
                             mean=mean, std=std)
-        svars = {n: v.unsqueeze(0).expand((K,) + v.shape).clone(
-            memory_format=torch.contiguous_format) for n, v in global_vars.items()}
-        leaves = [svars[n].requires_grad_() for n in pnames]
-        exp_avgs = [torch.zeros_like(t) for t in leaves]
-        exp_avg_sqs = [torch.zeros_like(t) for t in leaves]
+        with trace.span(trace.CLIENT_SETUP):
+            svars = {n: v.unsqueeze(0).expand((K,) + v.shape).clone(
+                memory_format=torch.contiguous_format) for n, v in global_vars.items()}
+            leaves = [svars[n].requires_grad_() for n in pnames]
+            exp_avgs = [torch.zeros_like(t) for t in leaves]
+            exp_avg_sqs = [torch.zeros_like(t) for t in leaves]
 
-        def slices(ts, k):
-            return [t.detach()[k] for t in ts]
+            def slices(ts, k):
+                return [t.detach()[k] for t in ts]
 
-        # client k's Adam works on the k-th slices, with counts of its own
-        per_client = [(slices(leaves, k), slices(exp_avgs, k), slices(exp_avg_sqs, k),
-                       [torch.tensor(0.0) for _ in leaves]) for k in range(K)]
+            # client k's Adam works on the k-th slices, with counts of its own
+            per_client = [(slices(leaves, k), slices(exp_avgs, k), slices(exp_avg_sqs, k),
+                           [torch.tensor(0.0) for _ in leaves]) for k in range(K)]
         loss_sum = torch.zeros((K,), dtype=torch.float32, device=device)
         cnt = torch.zeros((K,), dtype=torch.float32, device=device)
         for s in range(S):
             stepping = np.flatnonzero(pos_valid[s].any(1))
             if not len(stepping):
                 continue
-            p = pos_d[s]
-            if made is None:
-                views = augment_views(src.step(s), generator)
-            else:
-                views = {n: v[s] for n, v in made.items()}
-            sample = {n: t[rows, p] for n, t in plan["sample"].items()}
-            sample["_pos"] = p
-            with cast:
-                if needs_global:
+            trace.count(trace.STEPS, len(stepping))
+            with trace.span(trace.STEP):
+                with trace.span(trace.VIEWS):
+                    p = pos_d[s]
+                    if made is None:
+                        views = augment_views(src.step(s), generator)
+                    else:
+                        views = {n: v[s] for n, v in made.items()}
+                    sample = {n: t[rows, p] for n, t in plan["sample"].items()}
+                    sample["_pos"] = p
+                with cast:
+                    if needs_global:
+                        with trace.span(trace.GLOBAL_FORWARD), torch.no_grad():
+                            _add_global_logits(global_model, views)
+                    with trace.span(trace.LOSS_FORWARD):
+                        loss, loss_k, new_stats = stacked_loss_fn(
+                            model, svars, views, sample, valid_d[s], data["ctx"], generator,
+                            scalars)
+                with trace.span(trace.BACKWARD):
+                    grads = torch.autograd.grad(loss, leaves)
+                with trace.span(trace.OPTIMIZER):
+                    update = ([], [], [], [], [])
+                    for k in stepping:
+                        prm, m, v, st = per_client[k]
+                        for lst, ts in zip(update, (prm, [g[k] for g in grads], m, v, st)):
+                            lst.extend(ts)
+                    adam_update(*update, lr)
+                    keep = torch.as_tensor(pos_valid[s].any(1), device=device)
                     with torch.no_grad():
-                        _add_global_logits(global_model, views)
-                loss, loss_k, new_stats = stacked_loss_fn(
-                    model, svars, views, sample, valid_d[s], data["ctx"], generator,
-                    scalars)
-            grads = torch.autograd.grad(loss, leaves)
-            update = ([], [], [], [], [])
-            for k in stepping:
-                prm, m, v, st = per_client[k]
-                for lst, ts in zip(update, (prm, [g[k] for g in grads], m, v, st)):
-                    lst.extend(ts)
-            adam_update(*update, lr)
-            keep = torch.as_tensor(pos_valid[s].any(1), device=device)
-            with torch.no_grad():
-                for n, new in new_stats.items():
-                    held = keep.view((K,) + (1,) * (new.dim() - 1))
-                    svars[n].copy_(torch.where(held, new, svars[n]))
-                loss_sum += torch.where(keep, loss_k.detach().float(), 0.0)
-                cnt += keep
+                        for n, new in new_stats.items():
+                            held = keep.view((K,) + (1,) * (new.dim() - 1))
+                            svars[n].copy_(torch.where(held, new, svars[n]))
+                        loss_sum += torch.where(keep, loss_k.detach().float(), 0.0)
+                        cnt += keep
         src.finish()
+        trace.count(trace.CLIENTS, K)
         mean_losses = loss_sum / torch.clamp(cnt, min=1.0)
         return {"vars": {n: svars[n].detach() for n in global_vars}}, mean_losses, {}
 
@@ -886,51 +916,53 @@ def make_harvest_fn(model, mean, std, batch_size: int, augment_backend: str = "a
 
     @torch.no_grad()
     def harvest(stacked_vars, images, idx, generator, loader=None):
-        K, M = idx.shape
-        clients, gens = range(K), None
-        if mesh is not None:
-            clients = mesh.client_block(K)
-            gens = client_generators(generator, K, idx.device)
-        nb = math.ceil(M / batch_size)
-        pad = nb * batch_size - M
-        idx_p = torch.cat([idx, idx[:, -1:].expand(K, pad)], 1) if pad else idx
-        cast = autocast(idx.device, compute_dtype)
-        if images is None:
-            if loader is None:
-                raise ValueError("a harvest of streamed images needs the loader")
-            chunks = idx_p[clients.start:clients.stop].cpu().numpy().reshape(-1, batch_size)
-            if len(chunks):
-                loader.submit(chunks[0])
-        feats, probs = [], []
-        for i, k in enumerate(clients):
-            gen = generator if gens is None else gens[k]
-            model.load_state_dict(client_vars(stacked_vars, k))
-            model.eval()
-            fk, pk = [], []
-            for j in range(nb):
-                if images is None:
-                    host = loader.wait()
-                    if i * nb + j + 1 < len(chunks):
-                        loader.submit(chunks[i * nb + j + 1])
-                    imgs = loader.to_device(host, idx.device)
-                else:
-                    imgs = images[idx_p[k, j * batch_size:(j + 1) * batch_size]]
-                x = weak(imgs, gen, mean, std)
-                with cast:
-                    f, logits = model(x)
-                fk.append(f.float())
-                pk.append(torch.sigmoid(logits.float()))
-            feats.append(torch.cat(fk)[:M])
-            probs.append(torch.cat(pk)[:M])
-        if mesh is None:
-            return torch.stack(feats), torch.stack(probs)
-        # a rank past the last client holds none: the widths from the head
-        f = torch.stack(feats) if feats else idx.new_zeros(
-            (0, M, model.head.in_features), dtype=torch.float32)
-        p = torch.stack(probs) if probs else idx.new_zeros(
-            (0, M, model.head.num_classes), dtype=torch.float32)
-        out = mesh.gather_clients({"f": f, "p": p}, K)
-        return out["f"], out["p"]
+        with trace.span(trace.HARVEST, idx.device):
+            K, M = idx.shape
+            clients, gens = range(K), None
+            if mesh is not None:
+                clients = mesh.client_block(K)
+                gens = client_generators(generator, K, idx.device)
+            nb = math.ceil(M / batch_size)
+            pad = nb * batch_size - M
+            idx_p = torch.cat([idx, idx[:, -1:].expand(K, pad)], 1) if pad else idx
+            cast = autocast(idx.device, compute_dtype)
+            if images is None:
+                if loader is None:
+                    raise ValueError("a harvest of streamed images needs the loader")
+                chunks = idx_p[clients.start:clients.stop].cpu().numpy().reshape(-1, batch_size)
+                if len(chunks):
+                    loader.submit(chunks[0])
+            feats, probs = [], []
+            for i, k in enumerate(clients):
+                gen = generator if gens is None else gens[k]
+                model.load_state_dict(client_vars(stacked_vars, k))
+                model.eval()
+                fk, pk = [], []
+                for j in range(nb):
+                    if images is None:
+                        with trace.span(trace.LOADER_WAIT):
+                            host = loader.wait()
+                        if i * nb + j + 1 < len(chunks):
+                            loader.submit(chunks[i * nb + j + 1])
+                        imgs = loader.to_device(host, idx.device)
+                    else:
+                        imgs = images[idx_p[k, j * batch_size:(j + 1) * batch_size]]
+                    x = weak(imgs, gen, mean, std)
+                    with cast:
+                        f, logits = model(x)
+                    fk.append(f.float())
+                    pk.append(torch.sigmoid(logits.float()))
+                feats.append(torch.cat(fk)[:M])
+                probs.append(torch.cat(pk)[:M])
+            if mesh is None:
+                return torch.stack(feats), torch.stack(probs)
+            # a rank past the last client holds none: the widths from the head
+            f = torch.stack(feats) if feats else idx.new_zeros(
+                (0, M, model.head.in_features), dtype=torch.float32)
+            p = torch.stack(probs) if probs else idx.new_zeros(
+                (0, M, model.head.num_classes), dtype=torch.float32)
+            out = mesh.gather_clients({"f": f, "p": p}, K)
+            return out["f"], out["p"]
 
     return harvest
 

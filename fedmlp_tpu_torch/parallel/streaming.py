@@ -29,6 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fedmlp_tpu_torch.utils import profiling as trace
+
 
 class TableImages:
     """Step images indexed from the device-resident table u8 [N, H, W, 3]
@@ -57,7 +59,9 @@ class GatheredImages:
     (``stream_window=0``) and sent to the device."""
 
     def __init__(self, stream: "RoundStream"):
-        self.imgs = stream.loader.to_device(stream.loader.gather(stream.gidx), stream.device)
+        with trace.span(trace.LOADER_GATHER):
+            host = stream.loader.gather(stream.gidx)
+        self.imgs = stream.loader.to_device(host, stream.device)
 
     def client_step(self, k: int, s: int) -> torch.Tensor:
         return self.imgs[s, k]
@@ -115,7 +119,8 @@ class WindowedImages:
                                    f"reads in another order than {self.order!r}")
             keys, rows = self.windows[self.next]
             self.cur = None  # window w goes before window w+1 lands
-            host = self.loader.wait()
+            with trace.span(trace.LOADER_WAIT):
+                host = self.loader.wait()
             self.next += 1
             self._submit()
             self.cur = self.loader.to_device(host, self.device)

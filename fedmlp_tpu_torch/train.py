@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
@@ -54,6 +53,7 @@ from fedmlp_tpu_torch.ops.augment import AUGMENT_BACKENDS
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
 from fedmlp_tpu_torch.parallel.mesh import make_mesh, process_rank, world_size
 from fedmlp_tpu_torch.parallel.streaming import RoundStream
+from fedmlp_tpu_torch.utils import profiling as trace
 
 log = logging.getLogger("fedmlp_tpu_torch")
 
@@ -243,7 +243,8 @@ class RoundRecord:
     round: int
     client_losses: list
     metrics: Optional[dict] = None
-    seconds: float = 0.0
+    seconds: float = 0.0  # the round span's host seconds
+    spans: Optional[dict] = None  # the round's record (utils/profiling.round_record)
 
 
 @dataclass
@@ -258,6 +259,11 @@ class Trainer:
     history: list = field(default_factory=list)
 
     def __post_init__(self):
+        with trace.span(trace.TRAINER_INIT) as init:
+            self._build()
+        log.info("trainer set up in %.2fs", init.ns / 1e9)
+
+    def _build(self):
         cfg = self.cfg
         check_ported(cfg, world_size() if self.use_mesh else 1)
         npy = None
@@ -529,42 +535,45 @@ class Trainer:
         (``RoundStream``: at once, or in windows of ``stream_window``
         steps). Under a mesh the rank streams, and makes views of, only its
         clients' rows of its data shard."""
-        cfg = self.cfg
-        pos, pos_valid, _ = rt.make_batch_plan(
-            self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
-        # the rank's clients and rows: what it streams and makes views of
-        mine, rows, place = slice(None), slice(None), None
-        if self.round_mesh is not None:
-            place = self.round_mesh.place(self.n_clients, cfg.batch_size)
-            mine, rows = slice(place.clients.start, place.clients.stop), place.rows
-        images = self.fd.images
-        if self.loader is not None:
-            gidx = self._idx_host[np.arange(self.n_clients)[None, :, None], pos]
-            images = RoundStream(self.loader, gidx[:, mine, rows], pos_valid[:, mine],
-                                 cfg.data.stream_window, self.device)
-        data = {"images": images, "idx": self.fd.idx, "ctx": self.client_ctx()}
-        plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
-                "iter0": self.iter_num}
-        if self._pre_augment_chunk:
-            # the draws of the whole round's views, the same on every rank,
-            # come off the generator before the round's K client seeds
-            # (rt.client_generators); a rank makes its block's views
-            own = (images.open("client").whole() if self.loader is not None
-                   else rt.gather_round_images(images, self.fd.idx[mine], pos[:, mine, rows]))
-            plan["views"] = rt.pre_augment_views(
-                own, self.generator, view_mode=self.algo.VIEW_MODE,
-                augment_backend=cfg.data.augment_backend, mean=cfg.data.mean,
-                std=cfg.data.std, chunk=self._pre_augment_chunk, place=place)
-        out = round_fn(self.global_vars, data, plan, scalars, self.generator,
-                       extra_state)
-        if self.loader is not None:
-            self.stream_peak_rows = max(self.stream_peak_rows, images.peak_rows)
-        self.iter_num += pos.shape[0]
-        return out
+        with trace.span(trace.LOCAL_PASS, self.device):
+            cfg = self.cfg
+            pos, pos_valid, _ = rt.make_batch_plan(
+                self.rng, self.fd.valid.cpu().numpy(), cfg.batch_size, cfg.local_ep)
+            # the rank's clients and rows: what it streams and makes views of
+            mine, rows, place = slice(None), slice(None), None
+            if self.round_mesh is not None:
+                place = self.round_mesh.place(self.n_clients, cfg.batch_size)
+                mine, rows = slice(place.clients.start, place.clients.stop), place.rows
+            images = self.fd.images
+            if self.loader is not None:
+                gidx = self._idx_host[np.arange(self.n_clients)[None, :, None], pos]
+                images = RoundStream(self.loader, gidx[:, mine, rows], pos_valid[:, mine],
+                                     cfg.data.stream_window, self.device)
+            data = {"images": images, "idx": self.fd.idx, "ctx": self.client_ctx()}
+            plan = {"pos": pos, "pos_valid": pos_valid, "sample": sample_arrays,
+                    "iter0": self.iter_num}
+            if self._pre_augment_chunk:
+                # the draws of the whole round's views, the same on every rank,
+                # come off the generator before the round's K client seeds
+                # (rt.client_generators); a rank makes its block's views
+                own = (images.open("client").whole() if self.loader is not None
+                       else rt.gather_round_images(images, self.fd.idx[mine],
+                                                   pos[:, mine, rows]))
+                plan["views"] = rt.pre_augment_views(
+                    own, self.generator, view_mode=self.algo.VIEW_MODE,
+                    augment_backend=cfg.data.augment_backend, mean=cfg.data.mean,
+                    std=cfg.data.std, chunk=self._pre_augment_chunk, place=place)
+            out = round_fn(self.global_vars, data, plan, scalars, self.generator,
+                           extra_state)
+            if self.loader is not None:
+                self.stream_peak_rows = max(self.stream_peak_rows, images.peak_rows)
+            self.iter_num += pos.shape[0]
+            return out
 
     def aggregate(self, svars: dict, weights) -> dict:
         """Dataset-size-weighted FedAvg over the client-stacked variables."""
-        return agg_fedavg(svars, weights)
+        with trace.span(trace.AGGREGATE, self.device):
+            return agg_fedavg(svars, weights)
 
     def broadcast(self, global_vars: dict) -> dict:
         return rt.broadcast_to_clients(global_vars, self.n_clients)
@@ -577,35 +586,42 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def run_round(self, rnd: int) -> RoundRecord:
+        """One round, with its record of spans and counters
+        (``utils/profiling.py``): the round span up to and including the
+        read of the losses (``RoundRecord.seconds``), then the evaluation
+        when it is due."""
         cfg = self.cfg
-        t0 = time.time()
-        if hasattr(self.algo, "custom_round"):
-            losses = self.algo.custom_round(self, rnd)
-        else:
-            state, losses, _ = self.local_pass(
-                self.round_fn, {"labels": self.fd.obs_targets},
-                self.round_scalars(rnd))
-            # server aggregation (an algorithm may override it)
-            if hasattr(self.algo, "server_update"):
-                self.global_vars, self.server_state = self.algo.server_update(
-                    self, rnd, state["vars"], self.server_state)
-            else:
-                self.global_vars = self.aggregate(state["vars"], self.dict_len)
-        rec = RoundRecord(rnd, losses.cpu().numpy().tolist(), None, time.time() - t0)
-        if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds_warmup - 1:
-            rec.metrics = self.evaluate()
-            log.info("round %d metrics: %s", rnd, rec.metrics)
+        with trace.round_record(rnd) as spans:
+            with trace.span(trace.ROUND) as whole:
+                if hasattr(self.algo, "custom_round"):
+                    losses = self.algo.custom_round(self, rnd)
+                else:
+                    state, losses, _ = self.local_pass(
+                        self.round_fn, {"labels": self.fd.obs_targets},
+                        self.round_scalars(rnd))
+                    # server aggregation (an algorithm may override it)
+                    if hasattr(self.algo, "server_update"):
+                        self.global_vars, self.server_state = self.algo.server_update(
+                            self, rnd, state["vars"], self.server_state)
+                    else:
+                        self.global_vars = self.aggregate(state["vars"], self.dict_len)
+                losses = losses.cpu().numpy().tolist()
+            rec = RoundRecord(rnd, losses, None, whole.ns / 1e9, spans)
+            if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds_warmup - 1:
+                rec.metrics = self.evaluate()
+                log.info("round %d metrics: %s", rnd, rec.metrics)
         self.history.append(rec)
         return rec
 
     def evaluate(self) -> dict:
-        probs = self.eval_probs(self.global_vars, self.test_ds.images)
-        return multilabel_report(self.test_ds.targets, probs)
+        with trace.span(trace.EVALUATE):
+            probs = self.eval_probs(self.global_vars, self.test_ds.images)
+            return multilabel_report(self.test_ds.targets, probs)
 
     def run(self, rounds: Optional[int] = None) -> list:
         rounds = rounds if rounds is not None else self.cfg.rounds_warmup
         for rnd in range(rounds):
             rec = self.run_round(rnd)
-            log.info("round %d done in %.2fs, losses %s", rnd, rec.seconds,
-                     np.round(rec.client_losses, 4))
+            log.info("round %d done in %.2fs, losses %s; %s", rnd, rec.seconds,
+                     np.round(rec.client_losses, 4), trace.round_summary(rec.spans))
         return self.history

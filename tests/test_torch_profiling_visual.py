@@ -1,12 +1,11 @@
 """The last small modules of the port against the JAX package: the loss
 helpers ``masked_class_mean``, ``la_kd`` and ``pos_weight_from_counts``
-(ops/losses.py), ``PhaseTimer`` and ``trace_round`` (utils/profiling.py),
+(ops/losses.py), ``trace_round`` (utils/profiling.py),
 the tensorboardX passthrough of ``MetricWriter`` (utils/logging.py), and
 ``tsne_visual``, ``roc_print`` and ``fn_tn_loss_separation``
 (eval/visual.py)."""
 
 import json
-import time
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +23,7 @@ from fedmlp_tpu_torch.eval import visual as TV
 from fedmlp_tpu_torch.ops import losses as TL
 from fedmlp_tpu_torch.train import Trainer as TTrainer
 from fedmlp_tpu_torch.utils.logging import MetricWriter
-from fedmlp_tpu_torch.utils.profiling import PhaseTimer, trace_round
+from fedmlp_tpu_torch.utils.profiling import trace_round
 from fedmlp_tpu_torch.weights import from_jax_variables
 from torch_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
 
@@ -65,23 +64,6 @@ def test_loss_helpers_match_jax(batch_size):
     got = TL.pos_weight_from_counts(30, counts)
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, JL.pos_weight_from_counts(30, counts), rtol=1e-6)
-
-
-def test_phase_timer_reports_each_phase():
-    timer = PhaseTimer(device="cpu")
-    for _ in range(3):
-        with timer.phase("wait"):
-            time.sleep(0.01)
-    with timer.phase("train"):
-        pass
-    with pytest.raises(KeyError), timer.phase("train"):
-        raise KeyError("a failing phase still counts")
-    rep = timer.report()
-    assert list(rep) == ["train", "wait"]
-    assert rep["wait"]["calls"] == 3 and rep["train"]["calls"] == 2
-    assert rep["wait"]["total_s"] >= 0.03
-    assert rep["wait"]["mean_s"] == pytest.approx(rep["wait"]["total_s"] / 3)
-    assert set(rep["train"]) == {"total_s", "calls", "mean_s"}
 
 
 def test_trace_round_writes_a_chrome_trace_only_when_asked(tmp_path):
