@@ -12,11 +12,13 @@ from __future__ import annotations
 from fedmlp_tpu_torch.algos.base import apply_train, masked_rows
 from fedmlp_tpu_torch.models.stacked import stacked_apply
 from fedmlp_tpu_torch.ops import losses as L
+from fedmlp_tpu_torch.parallel.step_graph import graph_safe
 
 VIEW_MODE = "single"
 NEEDS_GLOBAL = False
 
 
+@graph_safe
 def loss_fn(model, views, sample, svalid, ctx, generator, scalars):
     labels = sample["labels"]
     _, logits = apply_train(model, views["x"], generator)

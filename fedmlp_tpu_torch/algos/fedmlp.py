@@ -32,6 +32,7 @@ from fedmlp_tpu_torch.ops.similarity import (
     masked_binary_prototypes,
 )
 from fedmlp_tpu_torch.parallel import fl_runtime as rt
+from fedmlp_tpu_torch.parallel.step_graph import graph_safe
 from fedmlp_tpu_torch.utils import profiling as trace
 
 VIEW_MODE = "dual"
@@ -43,6 +44,7 @@ NEEDS_GLOBAL = True
 # statistics update on view 1, then on view 2)
 # ----------------------------------------------------------------------
 
+@graph_safe
 def loss_fn(model, views, sample, svalid, ctx, generator, scalars):
     _, logits1 = apply_train(model, views["x1"], generator)
     _, logits2 = apply_train(model, views["x2"], generator)

@@ -45,6 +45,7 @@ from fedmlp_tpu_torch.data.masking import (
     observed_targets,
 )
 from fedmlp_tpu_torch.ops import augment as A
+from fedmlp_tpu_torch.parallel import step_graph as G
 from fedmlp_tpu_torch.parallel.mesh import Place, pad_clients
 from fedmlp_tpu_torch.parallel.streaming import TableImages, open_round_images
 from fedmlp_tpu_torch.utils import profiling as trace
@@ -440,6 +441,15 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     after every real step. The JAX package runs it on padding steps too,
     with zeroed aux, which leaves RoFL's state as it was.
 
+    A round with one generator for all clients (no ``mesh``), no teacher,
+    ``post_step``, per-client state or ``weight_stream_dtype``, a
+    ``graph_safe`` ``loss_fn``, its images on the device and its views made
+    in the step runs its live steps up to the optimizer on a
+    ``step_graph.StaticStep``: on a CUDA device, after a few eager steps,
+    each a replay of one CUDA graph of the step's gather, forwards and
+    backward; elsewhere the same code eagerly. Adam runs eagerly after each
+    step, as in every other round.
+
     Views are made in the step from the step's images, unless the plan
     brings them, or ``hoist_augment`` is set and the round has at most
     ``HOIST_MAX_VIEWS`` view images: then the round first makes all of them
@@ -497,6 +507,9 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
     t_view, t_key = ("x", "t_logits") if view_mode == "single" else ("x2", "t_logits2")
     n_views = 1 if view_mode == "single" else 2
     call = _LossCall(model, loss_fn)
+    graphable = (mesh is None and not has_teacher and post_step is None
+                 and weight_stream_dtype is None and G.is_graph_safe(loss_fn))
+    static = None  # the StaticStep, built at the first round that takes it
 
     def step_loss(*args, **kw):
         if weight_stream_dtype is None:
@@ -522,6 +535,22 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
             alpha = min(one - one / (np.float32(it) + one), alpha)
         return float(alpha), float(one - alpha)
 
+    def static_step(device, data, plan, src, made, pos_d, valid_d, generator, cstate):
+        """The round's ``StaticStep``, its tables loaded, or None when the
+        round runs the eager loop."""
+        nonlocal static
+        if not (graphable and cstate is None and made is None
+                and isinstance(src, TableImages)):
+            return None
+        if static is None:
+            static = G.StaticStep(list(model.parameters()), augment_views=augment_views,
+                                  capture=G.can_capture(device))
+        if not static.load_round(images=data["images"], idx=data["idx"], pos=pos_d,
+                                 valid=valid_d, sample=plan["sample"], ctx=data["ctx"],
+                                 generator=generator):
+            return None
+        return static
+
     def run_clients(global_vars, data, plan, scalars, generator, gens, extra_state):
         """The round of the plan's clients in turn; client k draws from
         ``gens[k]``, or all from ``generator`` when ``gens`` is None."""
@@ -539,6 +568,26 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
         made = _round_views(plan, hoist_augment, n_views, src, pos_d, generator,
                             view_mode=view_mode, augment_backend=augment_backend,
                             mean=mean, std=std)
+        st = static_step(device, data, plan, src, made, pos_d, valid_d, generator, cstate)
+
+        def forward_backward(views, sample, svalid, ctx, gen, opt, kw):
+            """The step on its views up to its optimizer: the frozen-global and
+            teacher forwards, the loss and backward → (loss, aux), detached."""
+            with cast:
+                if needs_global or has_teacher:
+                    with trace.span(trace.GLOBAL_FORWARD), torch.no_grad():
+                        if needs_global:
+                            _add_global_logits(global_model, views)
+                        if has_teacher:
+                            _, views[t_key] = teacher_model(views[t_view])
+                with trace.span(trace.LOSS_FORWARD):
+                    res = step_loss(views, sample, svalid, ctx, gen, scalars, **kw)
+            with trace.span(trace.BACKWARD):
+                loss, aux = res if isinstance(res, tuple) else (res, {})
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                return loss.detach().float(), {n: a.detach().float() for n, a in aux.items()}
+
         stacked = {n: torch.empty((K,) + v.shape, dtype=v.dtype, device=device)
                    for n, v in global_vars.items()}
         out = {"vars": stacked}
@@ -565,35 +614,28 @@ def make_local_round(model, loss_fn, *, lr: float, batch_size: int, mean, std,
                     kw["cstate"] = {n: v[k].clone() for n, v in cstate.items()}
                 ctx = {n: v[k] for n, v in data["ctx"].items()}
                 loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+
+            def static_train(views, sample, svalid, ctx):
+                return forward_backward(views, sample, svalid, ctx, gen, opt, {})[0]
+
             cnt = 0
             for s in range(S):
                 if not live[s, k]:
                     continue  # padding step: a true no-op
                 with trace.span(trace.STEP):
-                    with trace.span(trace.VIEWS):
-                        p = pos_d[s, k]
-                        sample = {n: t[k, p] for n, t in plan["sample"].items()}
-                        sample["_pos"] = p
-                        if made is None:
-                            views = augment_views(src.client_step(k, s), gen)
-                        else:
-                            views = {n: v[s, k] for n, v in made.items()}
-                    with cast:
-                        if needs_global or has_teacher:
-                            with trace.span(trace.GLOBAL_FORWARD), torch.no_grad():
-                                if needs_global:
-                                    _add_global_logits(global_model, views)
-                                if has_teacher:
-                                    _, views[t_key] = teacher_model(views[t_view])
-                        with trace.span(trace.LOSS_FORWARD):
-                            res = step_loss(views, sample, valid_d[s, k], ctx, gen, scalars,
-                                            **kw)
-                    with trace.span(trace.BACKWARD):
-                        loss, aux = res if isinstance(res, tuple) else (res, {})
-                        opt.zero_grad(set_to_none=True)
-                        loss.backward()
-                        loss = loss.detach().float()
-                        aux = {n: a.detach().float() for n, a in aux.items()}
+                    if st is not None:
+                        loss, aux = st.step(k, s, static_train), {}
+                    else:
+                        with trace.span(trace.VIEWS):
+                            p = pos_d[s, k]
+                            sample = {n: t[k, p] for n, t in plan["sample"].items()}
+                            sample["_pos"] = p
+                            if made is None:
+                                views = augment_views(src.client_step(k, s), gen)
+                            else:
+                                views = {n: v[s, k] for n, v in made.items()}
+                        loss, aux = forward_backward(views, sample, valid_d[s, k], ctx, gen,
+                                                     opt, kw)
                     with trace.span(trace.OPTIMIZER):
                         if split_batch:
                             # JAX's pmean of the gradients before Adam, of the

@@ -62,9 +62,12 @@ EVALUATE = "fedmlp.evaluate"
 LOADER_WAIT = "fedmlp.loader_wait"
 LOADER_GATHER = "fedmlp.loader_gather"
 # counters: live client-steps run (a joint step of n clients counts n),
-# clients trained
+# clients trained; of the per-client loop's steps, those run by a replay of
+# the step's CUDA graph, and the graphs captured
 STEPS = "fedmlp.steps"
 CLIENTS = "fedmlp.clients"
+GRAPH_STEPS = "fedmlp.graph_steps"
+GRAPH_CAPTURES = "fedmlp.graph_captures"
 
 HISTORY_ROUNDS = 1024
 # event pairs waiting past this many are resolved at the next device span
