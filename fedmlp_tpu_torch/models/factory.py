@@ -3,8 +3,10 @@ registry (``fedmlp_tpu/models/factory.py``: smallcnn, ResNet 18–152, the
 SE-ResNets and SENet-154, EfficientNet B0–B7, VGG 11–19, DenseNet
 121–201) with its aliases; names are case-insensitive, so the reference's
 spellings ('Resnet18', 'Efficient_b0', 'Dense121', 'SENet50', 'Vgg11')
-resolve too. Also the port's own initialization, drawn from the same
-distributions as flax's defaults, and the loading of converted weights."""
+resolve too. Beside them the port's own ``swin_b`` (Swin-B, ``models/
+swin.py``), which has no JAX counterpart. Also the port's own
+initialization, drawn from the same distributions as flax's defaults (Swin's
+from its published ones), and the loading of converted weights."""
 
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from fedmlp_tpu_torch.models import densenet, efficientnet, resnet, senet, smallcnn, vgg
+from fedmlp_tpu_torch.models import densenet, efficientnet, resnet, senet, smallcnn, swin, vgg
 from fedmlp_tpu_torch.models.heads import FCNormHead
 from fedmlp_tpu_torch.models.layers import BatchNorm
 from fedmlp_tpu_torch.ops.depthwise import DepthwiseModule
@@ -48,6 +50,8 @@ MODEL_REGISTRY = {
     "dense161": (densenet.densenet161, 2208),
     "dense169": (densenet.densenet169, 1664),
     "dense201": (densenet.densenet201, 1920),
+    # the port's own: no JAX counterpart
+    "swin_b": (swin.swin_b, 1024),
 }
 _ALIASES = {"efficientnet_b" + str(i): "efficient_b" + str(i) for i in range(8)}
 _ALIASES.update({"densenet" + s: "dense" + s for s in ("121", "161", "169", "201")})
@@ -76,7 +80,8 @@ def build_model(name: str, num_classes: int, dw_backend: str | None = None,
     ``normed_head`` puts the cosine head (``FCNormHead``) in place of the
     linear one. ``dw_backend`` selects the depthwise-conv implementation of
     the EfficientNet family (see ``MBConv``); ``image_size`` sets the width
-    of VGG's ``fc1``, which flax infers from the input at init. ``remat``
+    of VGG's ``fc1``, which flax infers from the input at init, and the map
+    sides Swin's shift masks are made for. ``remat``
     rematerializes the blocks of the EfficientNet, ResNet and SE-ResNet
     families, ``remat_stages`` (stage indices) EfficientNet's only. Each
     reaches only those architectures, and is dropped for the others, as in
@@ -92,7 +97,7 @@ def build_model(name: str, num_classes: int, dw_backend: str | None = None,
         kw["remat"] = True
     if remat_stages and key.startswith("efficient_b"):
         kw["remat_stages"] = tuple(remat_stages)
-    if key.startswith("vgg"):
+    if key.startswith("vgg") or key == "swin_b":
         kw["image_size"] = image_size
     return MODEL_REGISTRY[key][0](num_classes, **kw)
 
@@ -110,10 +115,14 @@ def init_model(model: nn.Module, seed: int) -> nn.Module:
     """Initialize in place from ``seed`` as flax does by default:
     lecun-normal conv and linear kernels, zero biases, batch-norm scale 1,
     bias 0, running mean 0 and variance 1; the cosine head's parameter
-    U(0, 2), the flax draw that its forward shifts to U(−1, 1)."""
+    U(0, 2), the flax draw that its forward shifts to U(−1, 1). Swin draws
+    its published initialization (``swin.init_module``)."""
     g = torch.Generator(device="cpu")
     g.manual_seed(seed)
+    published = isinstance(model, swin.SwinTransformer)
     for m in model.modules():
+        if published and swin.init_module(m, g):
+            continue
         if isinstance(m, (nn.Conv2d, nn.Linear, DepthwiseModule)):
             w = torch.empty(m.weight.shape, dtype=torch.float32)
             _lecun_normal_(w, g)

@@ -38,8 +38,10 @@ its own gather). The first ``WARMUP_STEPS`` live steps run eagerly, so that
 cuDNN and the lazy state meet their first calls outside a capture. The next
 live step is captured, then replayed, and every later step replays. The
 capture records the step's kernel-wrapper launches (``LAUNCH_COUNTS`` of the
-ops modules), undoes what the capture counted, and each replay adds them, so
-the counters keep counting device launches.
+ops modules) and every program counter that the captured body counted (the
+attention's of ``models/swin.py``; ``fedmlp.graph_*`` aside), undoes what the
+capture counted, and each replay adds them again, so a graphed round counts
+what an eager round counts.
 
 Where nothing can be captured (the CPU, or a torch whose graphs take no
 generator of their own) the static step runs eagerly every time, the same
@@ -94,6 +96,7 @@ class StaticStep:
         self.graph = None
         self.eager_steps = 0
         self.launches = []  # (counter dict, name, launches a replay makes)
+        self.counts = []  # (program counter, what a replay adds)
 
     def load_round(self, *, images, idx, pos, valid, sample, ctx, generator) -> bool:
         """Copy a round's tables in (device tensors: ``pos`` int64 and
@@ -150,6 +153,8 @@ class StaticStep:
         self.graph.replay()
         for counts, name, n in self.launches:
             counts[name] += n
+        for name, n in self.counts:
+            trace.count(name, n)
         trace.count(trace.GRAPH_STEPS)
         return self.loss
 
@@ -157,6 +162,7 @@ class StaticStep:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = [dict(c) for c in _LAUNCH_COUNTS]
+        counted = dict(trace.counters())
         with torch.cuda.graph(graph):
             self.loss = self._body(train)
         for counts, was in zip(_LAUNCH_COUNTS, before):
@@ -164,6 +170,11 @@ class StaticStep:
                 if n != was[name]:  # the capture counted launches that did not run
                     self.launches.append((counts, name, n - was[name]))
                     counts[name] = was[name]
+        for name, n in list(trace.counters().items()):
+            n -= counted.get(name, 0)
+            if n and not name.startswith("fedmlp.graph_"):  # nor did the counted work
+                self.counts.append((name, n))
+                trace.count(name, -n)
         self.grads = [q.grad for q in self.params]
         self.graph = graph
         trace.count(trace.GRAPH_CAPTURES)

@@ -68,6 +68,14 @@ STEPS = "fedmlp.steps"
 CLIENTS = "fedmlp.clients"
 GRAPH_STEPS = "fedmlp.graph_steps"
 GRAPH_CAPTURES = "fedmlp.graph_captures"
+# counters of the models' attention (``models/swin.py``): fused attention
+# calls, and their rows (batch × windows × heads), of the calls autograd
+# records (the trained forwards) and of those it does not (the frozen global
+# forward under ``no_grad``, evaluation)
+ATTN_CALLS_GRAD = "fedmlp.attn_calls_grad"
+ATTN_CALLS_NOGRAD = "fedmlp.attn_calls_nograd"
+ATTN_ROWS_GRAD = "fedmlp.attn_rows_grad"
+ATTN_ROWS_NOGRAD = "fedmlp.attn_rows_nograd"
 
 HISTORY_ROUNDS = 1024
 # event pairs waiting past this many are resolved at the next device span
@@ -158,8 +166,13 @@ def span(name: str, device=None) -> _Span:
 
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` of the open record."""
-    counters = _record()["counters"]
-    counters[name] = counters.get(name, 0) + n
+    now = counters()
+    now[name] = now.get(name, 0) + n
+
+
+def counters() -> dict:
+    """The open record's counters {name: n} (the dict itself)."""
+    return _record()["counters"]
 
 
 def resolve() -> None:

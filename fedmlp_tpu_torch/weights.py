@@ -13,7 +13,9 @@ mechanical: a flax path ``params/block1_0/dw_conv/kernel`` is the key
 * a parameter flax declares itself under the name ``weight`` (the cosine
   head's [in, num_classes]) keeps its name and layout. In a ``state_dict``
   it is the one 2-D ``weight`` of a module named ``head``
-  (``models/heads.py::FCNormHead``).
+  (``models/heads.py::FCNormHead``);
+* a parameter of any other name (Swin's ``relative_position_bias_table``)
+  keeps its name and layout.
 
 Conv and Dense biases map unchanged.
 """
@@ -45,7 +47,7 @@ def leaf_from_jax(coll: str, path: tuple, a) -> tuple[str, np.ndarray]:
     leaf = path[-1]
     if leaf == "kernel":
         a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
-    name = ".".join(tuple(path[:-1]) + (_LEAF[coll][leaf],))
+    name = ".".join(tuple(path[:-1]) + (_LEAF[coll].get(leaf, leaf),))
     return name, a
 
 
@@ -55,8 +57,8 @@ def leaf_to_jax(name: str, a: np.ndarray) -> tuple[str, tuple, np.ndarray]:
     *mods, leaf = name.split(".")
     if leaf in ("running_mean", "running_var"):
         coll, jleaf = "batch_stats", leaf[len("running_"):]
-    elif leaf == "bias":
-        coll, jleaf = "params", "bias"
+    elif leaf != "weight":  # a bias, or a parameter of its own name
+        coll, jleaf = "params", leaf
     elif a.ndim == 1:  # a 1-D weight is a batch-norm scale
         coll, jleaf = "params", "scale"
     elif a.ndim == 2 and mods and mods[-1] == "head":  # the cosine head

@@ -16,7 +16,9 @@ same generator state; two graphed rounds equal two rounds of the static step
 run eagerly and two rounds of the eager loop bit for bit; replays synchronize
 nothing; the optimizer's hooks fire on every step; the counters count the
 replays and every replayed B1 launch, and the profiler sees the graph's
-kernels. This file imports torch and the port alone:
+kernels. A small Swin's graphed rounds (attention, stochastic depth) count
+the attention calls and rows that the eager loop counts and equal its rounds
+bit for bit. This file imports torch and the port alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_step_graph.py -q
 """
@@ -60,21 +62,24 @@ def _federation(device, sizes, B, img, seed=0):
 
 
 def _rounds(model_name, loss_fn, view_mode, data, plan, device, n_rounds=2, img=32,
-            compute_dtype="float32", seed=5, lr=1e-3, **kw):
+            compute_dtype="float32", seed=5, lr=1e-3, arch=None, **kw):
     """``n_rounds`` calls of a fresh ``make_local_round`` from the same
     weights and generator seed, each round from the first client's
-    variables of the one before → ([(vars, losses)], the round function)."""
+    variables of the one before → ([(vars, losses)], the round function).
+    ``arch``: the model constructor's own arguments."""
     needs_global = view_mode == "dual"
     extra = kw.pop("_extra", lambda: None)
-    model = build_model(model_name, C, image_size=img).to(device)
-    gv = {n: v.to(device) for n, v in
-          init_model(build_model(model_name, C, image_size=img), 3).state_dict().items()}
+
+    def build():
+        return build_model(model_name, C, image_size=img, **(arch or {}))
+
+    model = build().to(device)
+    gv = {n: v.to(device) for n, v in init_model(build(), 3).state_dict().items()}
     fn = rt.make_local_round(
         model, loss_fn, lr=lr, batch_size=plan["pos"].shape[2], mean=MEAN, std=STD,
         view_mode=view_mode, needs_global=needs_global, augment_backend="fused",
         compute_dtype=compute_dtype,
-        global_model=build_model(model_name, C, image_size=img).to(device)
-        if needs_global else None, **kw)
+        global_model=build().to(device) if needs_global else None, **kw)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = []
     for r in range(n_rounds):
@@ -367,3 +372,41 @@ def test_graphed_rounds_on_the_card(card, monkeypatch):
                 assert P.HISTORY[-1]["counters"].get(P.GRAPH_STEPS, 0) == (r == 3) * live
         after.append([o[:2] for o in outs])
     _assert_bitwise(*after)
+
+
+@pytest.mark.cuda
+def test_graphed_swin_rounds_count_and_equal_the_eager_loop(card):
+    """A small Swin (width 16, depths (2, 2, 2, 2), heads (1, 1, 2, 2), window
+    4: shifted and masked windows, a padded stage, stochastic depth to 0.5)
+    at 64 px, FedMLP stage 1 in bf16, K=2 clients of 20 and 12 images at B=8:
+    two graphed rounds, profiled, against two rounds of the eager loop. Each
+    round counts the same attention calls and rows (the capture's counts
+    undone, each replay's added); losses and variables are equal bit for bit;
+    the profiler finds the pinned memory-efficient backend's kernels, one
+    forward launch a counted call (their names are printed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    data, plan = _federation(card, [20, 12], 8, 64)
+    live = int(plan["pos_valid"].any(2).sum())
+    kw = dict(compute_dtype="bfloat16", img=64, lr=3e-6,
+              arch=dict(embed_dim=16, depths=(2, 2, 2, 2), num_heads=(1, 1, 2, 2), window=4))
+    attn = (P.ATTN_CALLS_GRAD, P.ATTN_ROWS_GRAD, P.ATTN_CALLS_NOGRAD, P.ATTN_ROWS_NOGRAD)
+    counted = []
+    P.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graphed, _ = _rounds("swin_b", tfedmlp.loss_fn, "dual", data, plan, card, **kw)
+        torch.cuda.synchronize()
+    counted.append([{n: r["counters"].get(n, 0) for n in attn} for r in P.HISTORY])
+    assert P.HISTORY[-1]["counters"][P.GRAPH_STEPS] == live
+    P.reset()
+    eager, _ = _rounds("swin_b", _unmarked(tfedmlp.loss_fn), "dual", data, plan, card, **kw)
+    counted.append([{n: r["counters"].get(n, 0) for n in attn} for r in P.HISTORY])
+    print(f"attention counters a round, graphed {counted[0]}, eager {counted[1]}")
+    assert counted[0] == counted[1]
+    assert counted[1][0][P.ATTN_CALLS_GRAD] == live * 2 * 8  # two trained views, 8 blocks
+    names = [e.name() for e in prof.profiler.kineto_results.events() if "fmha" in e.name()]
+    print("attention kernels:", sorted({n[:120] for n in names}))
+    forward = sum(1 for n in names if "fmha_cutlassF" in n)
+    assert forward == sum(c[P.ATTN_CALLS_GRAD] + c[P.ATTN_CALLS_NOGRAD] for c in counted[0])
+    assert any("fmha_cutlassB" in n for n in names)
+    _assert_bitwise(graphed, eager)
