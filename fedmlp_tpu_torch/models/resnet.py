@@ -1,5 +1,6 @@
-"""ResNet 18/34/50/101/152 and the SE-ResNets 50/101/152 in NCHW, after
-``fedmlp_tpu/models/resnet.py`` (torchvision's topology).
+"""ResNet 18/34/50/101/152 and the SE-ResNets 50/101/152, after
+``fedmlp_tpu/models/resnet.py`` (torchvision's topology), with their
+activations channels-last.
 
 Submodules carry flax's names, the automatic ones inside a block
 (``Conv_0``, ``BatchNorm_0``, ``Conv_1``, ...) and the explicit ones
@@ -12,6 +13,15 @@ stem's 3x3/2 max-pool pads with −inf, as flax's does. The feature is the
 pooled last activation: 512 wide for ResNet-18/34, 2048 for the others.
 ``remat`` rematerializes every block in the backward (``layers.remat``), as
 JAX's ``nn.remat(block_cls)``.
+
+The forward turns its NCHW input channels-last once, before the stem, and
+every later activation keeps that layout: cuDNN's convolutions (NHWC kernels
+on Hopper in bf16) take and give it without transposing, and batch norm, the
+max-pool, the residual sums, ReLUs and the SE gate run ATen's channels-last
+kernels on it. Shapes stay NCHW; only the strides differ. The pooled feature
+is a plain ``[B, C]``. Parameters and buffers keep PyTorch's default layout,
+so state dicts, the aggregation and ``weights.py`` see what they always saw.
+Each forward counts ``fedmlp.nhwc_forwards`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from torch import nn
 
 from fedmlp_tpu_torch.models.heads import make_head
 from fedmlp_tpu_torch.models.layers import BatchNorm, remat as remat_block
+from fedmlp_tpu_torch.utils import profiling as trace
 
 
 def _bn(ch: int) -> BatchNorm:
@@ -114,6 +125,8 @@ class ResNet(nn.Module):
         self.head = make_head(ch, num_classes, normed_head)
 
     def forward(self, x: torch.Tensor, generator=None):
+        x = x.contiguous(memory_format=torch.channels_last)
+        trace.count(trace.NHWC_FORWARDS)
         x = F.relu(self.stem_bn(self.stem_conv(x)))
         x = F.max_pool2d(x, 3, 2, 1)  # pads with −inf
         for name in self.block_names:

@@ -76,6 +76,9 @@ ATTN_CALLS_GRAD = "fedmlp.attn_calls_grad"
 ATTN_CALLS_NOGRAD = "fedmlp.attn_calls_nograd"
 ATTN_ROWS_GRAD = "fedmlp.attn_rows_grad"
 ATTN_ROWS_NOGRAD = "fedmlp.attn_rows_nograd"
+# counter of the ResNets' forwards (``models/resnet.py``), each of which runs
+# its activations channels-last from the stem on
+NHWC_FORWARDS = "fedmlp.nhwc_forwards"
 
 HISTORY_ROUNDS = 1024
 # event pairs waiting past this many are resolved at the next device span

@@ -18,7 +18,10 @@ nothing; the optimizer's hooks fire on every step; the counters count the
 replays and every replayed B1 launch, and the profiler sees the graph's
 kernels. A small Swin's graphed rounds (attention, stochastic depth) count
 the attention calls and rows that the eager loop counts and equal its rounds
-bit for bit. This file imports torch and the port alone:
+bit for bit. ResNet-18's graphed rounds count the channels-last forwards
+that the eager loop counts, equal its rounds bit for bit, and run no cuDNN
+layout transpose and only the channels-last batch-norm and NHWC max-pool
+kernels. This file imports torch and the port alone:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_step_graph.py -q
 """
@@ -410,3 +413,46 @@ def test_graphed_swin_rounds_count_and_equal_the_eager_loop(card):
     assert forward == sum(c[P.ATTN_CALLS_GRAD] + c[P.ATTN_CALLS_NOGRAD] for c in counted[0])
     assert any("fmha_cutlassB" in n for n in names)
     _assert_bitwise(graphed, eager)
+
+
+@pytest.mark.cuda
+def test_graphed_resnet18_rounds_run_channels_last(card):
+    """ResNet-18 at 64 px, FedMLP stage 1 in bf16, K=2 clients of 20 and 12
+    images at B=8: two graphed rounds, profiled, against two rounds of the
+    eager loop. Each round counts the same ``fedmlp.nhwc_forwards`` (the
+    capture's count undone, each replay's added), one a forward; losses and
+    variables are equal bit for bit. In the profile no cuDNN layout
+    transpose (``nchwToNhwcKernel``, ``nhwcToNchwKernel``) runs, every ATen
+    batch-norm kernel is a ``channels_last`` one and the max-pool runs its
+    NHWC kernels (the names are printed)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    data, plan = _federation(card, [20, 12], 8, 64)
+    live = int(plan["pos_valid"].any(2).sum())
+    kw = dict(compute_dtype="bfloat16", img=64, lr=3e-6)
+    counted = []
+    P.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graphed, _ = _rounds("resnet18", tfedmlp.loss_fn, "dual", data, plan, card, **kw)
+        torch.cuda.synchronize()
+    counted.append([r["counters"].get(P.NHWC_FORWARDS, 0) for r in P.HISTORY])
+    assert P.HISTORY[-1]["counters"][P.GRAPH_STEPS] == live
+    P.reset()
+    eager, _ = _rounds("resnet18", _unmarked(tfedmlp.loss_fn), "dual", data, plan, card, **kw)
+    counted.append([r["counters"].get(P.NHWC_FORWARDS, 0) for r in P.HISTORY])
+    print(f"fedmlp.nhwc_forwards a round, graphed {counted[0]}, eager {counted[1]}")
+    assert counted[0] == counted[1] and min(counted[1]) >= 2 * live
+    _assert_bitwise(graphed, eager)
+
+    names = {e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA}
+    layout = sorted(n[:120] for n in names if re.search("batch_norm|max_pool|nchw|nhwc", n,
+                                                        re.IGNORECASE))
+    print("layout kernels:", layout)
+    assert not [n for n in names if "nchwToNhwc" in n or "nhwcToNchw" in n]
+    bn = [n for n in names if re.search(r"batch_norm_\w*kernel", n)]
+    assert bn and all("channels_last" in n for n in bn), bn
+    pools = [n for n in names if "max_pool" in n]
+    assert pools and all("nhwc" in n for n in pools), pools
